@@ -1,0 +1,268 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (geo4d_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the script with a non-zero exit code and without
+the final `ok` line):
+
+1. device: requires CUDA; prints the card's name and power limit
+   (nvidia-smi) and the float32 matmul/conv precision chosen.
+2. build: compiles geo4d_tpu_torch/csrc/*.cu with nvcc for sm_90a into
+   build/geo4d_tpu_torch/ and loads the library.
+3. kernels: each hand-written kernel against its plain PyTorch version on
+   the card, in bf16, at the shapes the main path gives it; prints max abs
+   and rel error and the median time of both (CUDA events, after warm-up).
+4. slice: the shipped model at full width (random-normal weights, seed 0)
+   runs WindowPredictor.predict_video over a seeded 20-frame 256x576 video
+   (2 sliding windows, 5-step DDIM); checks output shapes and finiteness,
+   that every kernel launched during that run and that no plain version ran
+   on a CUDA tensor; prints per-stage wall times and peak memory.
+5. reference: the tiny preset in bf16 on the card (kernels) against the
+   same weights in float32 on the CPU (plain versions), on a small input.
+
+The second-to-last line is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# (name, source, TPU kernel it replaces)
+KERNELS = {
+    "group_norm": ("geo4d_tpu_torch/csrc/group_norm.cu", "geo4d_tpu/ops/group_norm.py:101"),
+    "flash_attention": ("geo4d_tpu_torch/csrc/flash_attention.cu",
+                        "geo4d_tpu/ops/flash_attention.py:70"),
+    "temporal_attention": ("geo4d_tpu_torch/csrc/temporal_attention.cu",
+                           "geo4d_tpu/ops/temporal_attention.py:85"),
+}
+# bf16 keeps 8 significant bits: allow about two output ulps plus the
+# float32 summation order (and, for flash attention, the online softmax)
+BF16_ATOL = 2 ** -6
+BF16_RTOL = 2 ** -7
+# tiny preset, bf16 on the card vs float32 on the CPU: relative L2 error
+REF_REL_L2 = 1e-2
+
+
+def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def compare(name, got, want):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / want.abs().clamp_min(1e-3)).max())
+    ok = bool((err <= BF16_ATOL + BF16_RTOL * want.abs()).all())
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"(max abs {max_abs:.3e}, max rel {max_rel:.3e})")
+    return max_abs, max_rel
+
+
+def kernel_phase(dev):
+    from geo4d_tpu_torch.nn.basics import num_groups_for
+    from geo4d_tpu_torch.ops import flash_attention as fa
+    from geo4d_tpu_torch.ops import group_norm as gn
+    from geo4d_tpu_torch.ops import temporal_attention as ta
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def bf16(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(torch.bfloat16)
+
+    cases = []
+    for shape in [(16, 2304, 320), (1, 36864, 320), (1, 36864, 960), (48, 147456, 128)]:
+        for silu in (False, True):
+            x = bf16(*shape, scale=2.0, shift=0.5)
+            gamma = torch.randn(shape[-1], generator=g, device=dev)
+            beta = torch.randn(shape[-1], generator=g, device=dev)
+            args = (x, gamma, beta, num_groups_for(shape[-1]), 1e-5, silu)
+            cases.append(("group_norm", f"{shape} silu={silu}",
+                          lambda a=args: gn.group_norm(*a), lambda a=args: gn.group_norm_plain(*a)))
+    for b, nq, nk, h in [(16, 2304, 2304, 5), (16, 576, 576, 10), (16, 2304, 16, 5),
+                         (16, 576, 16, 10)]:
+        qkv = (bf16(b, nq, h, 64), bf16(b, nk, h, 64), bf16(b, nk, h, 64))
+        cases.append(("flash_attention", f"B={b} Nq={nq} Nk={nk} H={h} D=64",
+                      lambda a=qkv: fa.flash_attention(*a),
+                      lambda a=qkv: fa.flash_attention_plain(*a)))
+    for p, c, heads in [(2304, 320, 5), (2304, 512, 8), (144, 1280, 20)]:
+        qkv = (bf16(p, 16, c), bf16(p, 16, c), bf16(p, 16, c))
+        cases.append(("temporal_attention", f"P={p} N=16 C={c} heads={heads}",
+                      lambda a=qkv, n=heads: ta.temporal_attention(*a, n),
+                      lambda a=qkv, n=heads: ta.temporal_attention_plain(*a, n)))
+
+    results = {}
+    for name, label, kernel, plain in cases:
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        max_abs, max_rel = compare(f"{name} {label}", got, want)
+        del got, want
+        ms_plain1 = median_ms(plain)
+        ms = median_ms(kernel)
+        ms_plain2 = median_ms(plain)
+        plain_ms = min(ms_plain1, ms_plain2)
+        print(f"kernel {name:18s} {label:40s} max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                      "shape": label})
+        r["max_abs_err"] = max(r["max_abs_err"], max_abs)
+        torch.cuda.empty_cache()
+    return results
+
+
+def slice_phase(dev):
+    from geo4d_tpu_torch.models.presets import flagship, init_random_
+    from geo4d_tpu_torch.ops import flash_attention as fa
+    from geo4d_tpu_torch.ops import group_norm as gn
+    from geo4d_tpu_torch.ops import temporal_attention as ta
+    from geo4d_tpu_torch.pipeline.inference import (InferenceConfig, StageTimer,
+                                                    WindowPredictor, sliding_windows)
+
+    t0 = time.perf_counter()
+    model = init_random_(flagship(), dev, seed=0).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"slice: flagship built, {n_params} parameters, {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, size=(20, 256, 576, 3), dtype=np.uint8)
+    groups = sliding_windows(20, 16, 4)
+    text_ctx = rng.normal(size=(1, 77, 1024)).astype(np.float32)
+    predictor = WindowPredictor(model, InferenceConfig(), device=dev)
+
+    t0 = time.perf_counter()
+    predictor.predict_video(frames, groups, text_ctx, fps=24, seed=123, return_device=True)
+    torch.cuda.synchronize()
+    print(f"slice: warm-up run {time.perf_counter() - t0:.3f} s", flush=True)
+
+    stats = {"group_norm": gn.stats, "flash_attention": fa.stats,
+             "temporal_attention": ta.stats}
+    timer = StageTimer(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for s in stats.values():
+        s.reset()
+    t0 = time.perf_counter()
+    out = predictor.predict_video(frames, groups, text_ctx, fps=24, seed=123,
+                                  return_device=True, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: s.launches for k, s in stats.items()}
+    plain_on_cuda = {k: s.plain_on_cuda for k, s in stats.items()}
+
+    g, t, h, w = groups.shape[0], 16, 256, 576
+    want = {"pts3d": (g, t, h, w, 3), "conf": (g, t, h, w), "valid": (g, t, h, w),
+            "inv_depth": (g, t, h, w), "traj": (g, t, 4, 4)}
+    for k, shape in want.items():
+        if tuple(out[k].shape) != shape:
+            raise AssertionError(f"{k}: shape {tuple(out[k].shape)} != {shape}")
+        if k != "valid" and not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"{k}: non-finite values")
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {k} was not launched on the main path")
+    if any(plain_on_cuda.values()):
+        raise AssertionError(f"a plain version ran on a CUDA tensor: {plain_on_cuda}")
+    print(f"slice: predict_video 2 windows x 16 frames 256x576: wall {wall:.4f} s "
+          f"(device synchronised around each stage)")
+    print("slice: stage seconds " + json.dumps({k: round(v, 5) for k, v in timer.seconds.items()}))
+    print(f"slice: peak memory allocated {torch.cuda.max_memory_allocated(dev)} bytes")
+    print(f"slice: launches {json.dumps(launches)} plain_on_cuda {json.dumps(plain_on_cuda)}")
+    print(f"slice: valid fraction {float(out['valid'].float().mean()):.4f}", flush=True)
+    return launches
+
+
+def reference_phase(dev):
+    """Tiny preset, same weights and noise: bf16 on the card (kernels) vs
+    float32 on the CPU (plain versions)."""
+    from geo4d_tpu_torch.models.presets import tiny
+    from geo4d_tpu_torch.pipeline.inference import InferenceConfig, WindowPredictor
+
+    cfg = InferenceConfig(window=4, stride=2, ddim_steps=2, sample_posterior=False)
+    ref = tiny(temporal_length=4, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in ref.parameters():
+            p.normal_(0.0, 0.05, generator=gen)
+    card = tiny(temporal_length=4, dtype=torch.bfloat16, device="meta")
+    card.to_empty(device=dev)
+    card.load_state_dict(ref.state_dict())
+    rng = np.random.default_rng(1)
+    frames = rng.integers(0, 256, size=(2, 4, 64, 128, 3), dtype=np.uint8)
+    text_ctx = rng.normal(size=(1, 77, 64)).astype(np.float32)
+    x_T = rng.normal(size=(2, 4, 8, 16, 16)).astype(np.float32)
+    want = WindowPredictor(ref, cfg).predict_windows(frames, text_ctx, 24, x_T=x_T)
+    got = WindowPredictor(card, cfg, device=dev).predict_windows(frames, text_ctx, 24, x_T=x_T)
+    for k in ("pts3d", "conf", "inv_depth"):
+        rel = float(np.linalg.norm(got[k] - want[k]) / max(np.linalg.norm(want[k]), 1e-12))
+        print(f"reference: {k} relative L2 error {rel:.3e} (limit {REF_REL_L2})")
+        if not rel <= REF_REL_L2:
+            raise AssertionError(f"reference: {k} relative L2 error {rel:.3e} > {REF_REL_L2}")
+    agree = float((got["valid"] == want["valid"]).mean())
+    print(f"reference: valid masks agree on {agree:.4f} of points", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    # full float32 for the plain float32 products (attention logits and the
+    # CLIP resize); the model's own matmuls and convolutions run in bf16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+
+    from geo4d_tpu_torch.ops import dispatch
+
+    t0 = time.perf_counter()
+    dispatch.kernels()
+    print(f"build: {dispatch.library_path()} in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    with torch.no_grad():
+        results = kernel_phase(dev)
+        launches = slice_phase(dev)
+        reference_phase(dev)
+
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "geo4d_tpu"))
+    if foreign:
+        raise AssertionError(f"the port imported JAX or the JAX package: {foreign[:5]}")
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+         "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
+         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+        for name, (src, tpu) in KERNELS.items()]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,207 @@
+"""Attention stack: cross/self attention, spatial and temporal transformers.
+
+Routing by shape, fixed before launch (as geo4d_tpu/nn/attention.py routes):
+
+  * self-attention over at most 32 tokens (the temporal path, N = 16
+    frames) -> kernel K3 on the heads-packed (P, N, C) projections;
+  * unmasked attention that passes `flash_attention.fits` (spatial
+    self-attention at the two finest levels, and the 16-token image stream)
+    -> kernel K2;
+  * everything else (text cross-attention with 77 keys, the coarse spatial
+    levels) -> `dot_product_attention`, plain PyTorch, where the JAX package
+    used XLA.
+
+Module and parameter names follow the original Geo4D PyTorch code, so its
+state dicts (and `models/convert.py::state_dict_from_jax`) load directly.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from geo4d_tpu_torch.nn.basics import GroupNorm32, LayerNorm32, zero_
+from geo4d_tpu_torch.ops import flash_attention as fa
+from geo4d_tpu_torch.ops.temporal_attention import temporal_attention
+
+TEXT_CONTEXT_LEN = 77
+TEMPORAL_MAX_SEQ = 32
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain multi-head attention over (B, N, H, D): f32 logits and softmax,
+    weights cast to v's dtype before the weighted sum, output in v's dtype."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
+    return out.to(v.dtype)
+
+
+def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, N, H, D) attention: kernel K2 where its gate holds, else plain."""
+    if fa.fits(q.shape[1], k.shape[1], q.shape[-1]):
+        return fa.flash_attention(q, k, v)
+    return dot_product_attention(q, k, v)
+
+
+class CrossAttention(nn.Module):
+    """Self or cross attention with the optional image stream: with
+    `image_cross_attention`, context is [text (77) | image tokens], the image
+    tokens get their own K/V projections, and out = text + scale * image."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: Optional[int] = None, image_cross_attention: bool = False,
+                 image_cross_attention_scale: float = 1.0, causal: bool = False,
+                 relative_position: bool = False, dtype=torch.bfloat16):
+        super().__init__()
+        if causal or relative_position:
+            raise NotImplementedError(
+                "causal and relative-position temporal attention are not ported "
+                "(both are off in the shipped configuration)")
+        inner = heads * dim_head
+        ctx_dim = context_dim or query_dim
+        self.heads, self.dim_head = heads, dim_head
+        self.image_cross_attention = image_cross_attention
+        self.image_cross_attention_scale = image_cross_attention_scale
+        self.to_q = nn.Linear(query_dim, inner, bias=False, dtype=dtype)
+        self.to_k = nn.Linear(ctx_dim, inner, bias=False, dtype=dtype)
+        self.to_v = nn.Linear(ctx_dim, inner, bias=False, dtype=dtype)
+        self.to_out = nn.Sequential(nn.Linear(inner, query_dim, dtype=dtype))
+        if image_cross_attention:
+            self.to_k_ip = nn.Linear(ctx_dim, inner, bias=False, dtype=dtype)
+            self.to_v_ip = nn.Linear(ctx_dim, inner, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, n, _ = x.shape
+        h, d = self.heads, self.dim_head
+        q = self.to_q(x)
+        ctx_img = None
+        if context is None:
+            ctx = x
+        else:
+            ctx = context[:, :TEXT_CONTEXT_LEN]
+            if self.image_cross_attention:
+                ctx_img = context[:, TEXT_CONTEXT_LEN:]
+        k = self.to_k(ctx)
+        v = self.to_v(ctx)
+
+        if context is None and n <= TEMPORAL_MAX_SEQ:
+            return self.to_out(temporal_attention(q, k, v, h))
+
+        def split_heads(t):
+            return t.view(t.shape[0], t.shape[1], h, d)
+
+        qh = split_heads(q)
+        out = spatial_attention(qh, split_heads(k), split_heads(v)).reshape(b, n, h * d)
+        if ctx_img is not None and ctx_img.shape[1] > 0:
+            k_ip = split_heads(self.to_k_ip(ctx_img))
+            v_ip = split_heads(self.to_v_ip(ctx_img))
+            out_ip = spatial_attention(qh, k_ip, v_ip).reshape(b, n, h * d)
+            out = out + self.image_cross_attention_scale * out_ip
+        return self.to_out(out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)  # exact erf GELU
+
+
+class GEGLUFeedForward(nn.Module):
+    """GEGLU MLP; `net.1` is the reference's dropout slot."""
+
+    def __init__(self, dim: int, mult: int = 4, dtype=torch.bfloat16):
+        super().__init__()
+        self.net = nn.Sequential(GEGLU(dim, dim * mult, dtype), nn.Identity(),
+                                 nn.Linear(dim * mult, dim, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x)
+
+
+class BasicTransformerBlock(nn.Module):
+    """pre-LN: self-attn -> cross-attn (self-attn without context) -> GEGLU FF."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 context_dim: Optional[int] = None, image_cross_attention: bool = False,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.attn1 = CrossAttention(dim, heads, dim_head, dtype=dtype)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim=context_dim,
+                                    image_cross_attention=image_cross_attention, dtype=dtype)
+        self.ff = GEGLUFeedForward(dim, dtype=dtype)
+        self.norm1 = LayerNorm32(dim)
+        self.norm2 = LayerNorm32(dim)
+        self.norm3 = LayerNorm32(dim)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x).to(self.dtype))
+        x = x + self.attn2(self.norm2(x).to(self.dtype), context=context)
+        return x + self.ff(self.norm3(x).to(self.dtype))
+
+
+class SpatialTransformer(nn.Module):
+    """Per-frame attention over H*W tokens of (B, H, W, C) frames: GroupNorm,
+    linear in/out projections (zero-init out), residual."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
+                 context_dim: Optional[int] = None, image_cross_attention: bool = False,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = GroupNorm32(channels, eps=1e-6)
+        self.proj_in = nn.Linear(channels, inner, dtype=dtype)
+        self.transformer_blocks = nn.ModuleList(
+            BasicTransformerBlock(inner, heads, dim_head, context_dim,
+                                  image_cross_attention, dtype) for _ in range(depth))
+        self.proj_out = zero_(nn.Linear(inner, channels, dtype=dtype))
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, hgt, wid, c = x.shape
+        h = self.proj_in(self.norm(x).reshape(b, hgt * wid, c))
+        for block in self.transformer_blocks:
+            h = block(h, context=context)
+        return x + self.proj_out(h).reshape(b, hgt, wid, c)
+
+
+class TemporalTransformer(nn.Module):
+    """Per-pixel attention over the T frames of (B, T, H, W, C) clips
+    (self-attention only, as shipped). The GroupNorm is per clip.
+
+    proj_in/proj_out are linear; checkpoints that stored them as kernel-1
+    Conv1d weights (O, I, 1) load too."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = GroupNorm32(channels, eps=1e-6)
+        self.proj_in = nn.Linear(channels, inner, dtype=dtype)
+        self.transformer_blocks = nn.ModuleList(
+            BasicTransformerBlock(inner, heads, dim_head, dtype=dtype) for _ in range(depth))
+        self.proj_out = zero_(nn.Linear(inner, channels, dtype=dtype))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        for name in ("proj_in.weight", "proj_out.weight"):
+            w = state_dict.get(prefix + name)
+            if w is not None and w.dim() == 3:
+                state_dict[prefix + name] = w[..., 0]
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, t, hgt, wid, c = x.shape
+        h = self.norm(x).permute(0, 2, 3, 1, 4).reshape(b * hgt * wid, t, c)
+        h = self.proj_in(h)
+        for block in self.transformer_blocks:
+            h = block(h)
+        h = self.proj_out(h).reshape(b, hgt, wid, t, c).permute(0, 3, 1, 2, 4)
+        return x + h

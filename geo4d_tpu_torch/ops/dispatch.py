@@ -1,0 +1,142 @@
+"""Static kernel gate and the build/loader for the CUDA sources in csrc/.
+
+Every kernel wrapper in this package asks `use_kernel(x)` before it runs:
+
+  * a tensor on the CPU takes the kernel's plain PyTorch version (the CPU
+    tests run this way);
+  * a tensor on a CUDA device takes the kernel; the wrapper then checks
+    dtype, shape and contiguity and raises on anything the kernel does not
+    take;
+  * any other device raises.
+
+Nothing falls back: a failed build or a refused launch raises.
+
+The sources in csrc/ have a plain C interface. At first use they are
+compiled with nvcc for sm_90a into one shared library under
+build/geo4d_tpu_torch/ (named by a hash of the sources and flags, so an
+edited source rebuilds) and loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "geo4d_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argument types. Every function returns the
+# cudaError_t of its launch (0 = launched).
+_SIGNATURES = {
+    "gn_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gn_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+}
+
+
+class KernelStats:
+    """Per-kernel counters: `launches` counts kernel launches made by the
+    wrapper; `plain_on_cuda` counts calls of the plain version with a CUDA
+    tensor (only a comparison against the kernel does that)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.plain_on_cuda = 0
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain_on_cuda = 0
+
+    def note_plain(self, x: torch.Tensor) -> None:
+        if x.is_cuda:
+            self.plain_on_cuda += 1
+
+
+def use_kernel(x: torch.Tensor) -> bool:
+    """True when `x` must go through the hand-written kernel (CUDA), False
+    when it takes the plain version (CPU). Raises for other devices."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel route for device {x.device}")
+
+
+def require(cond: bool, what: str) -> None:
+    """Raise on an input the kernel does not take (no silent fallback)."""
+    if not cond:
+        raise ValueError(f"kernel input rejected: {what}")
+
+
+def check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed with cudaError {err}")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgeo4d_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless a library built
+    from the same sources and flags exists. Raises if nvcc fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+@functools.cache
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_handle(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream

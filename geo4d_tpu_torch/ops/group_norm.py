@@ -1,0 +1,101 @@
+"""GroupNorm (+ optional SiLU) on channels-last activations: kernel K1.
+
+`group_norm` normalises x viewed as (N, S, C), with N = x.shape[0] and S
+the product of the middle axes: statistics per (n, group) over S x C/G in
+float32, then one affine y = x * a + b (+ silu) in x.dtype. On a CUDA tensor
+it launches csrc/group_norm.cu (two passes: per-tile partial sums, then fold
+and apply); on a CPU tensor it runs `group_norm_plain`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from geo4d_tpu_torch.ops.dispatch import (
+    KernelStats,
+    check_launch,
+    kernels,
+    require,
+    stream_handle,
+    use_kernel,
+)
+
+stats = KernelStats()
+
+_TARGET_BLOCKS = 1056   # 8 blocks for each of the H100's 132 SMs
+_MAX_TILES = 128        # caps the partial-sum fold each apply block reads
+_MAX_CHANNELS = 4096
+
+
+def group_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     groups: int, eps: float, silu: bool = False) -> torch.Tensor:
+    """The same function in PyTorch ops, with the algebra of the JAX XLA path
+    (geo4d_tpu/nn/basics.py::_FusedGroupNorm): per-channel f32 moments,
+    group combine, one per-channel affine."""
+    stats.note_plain(x)
+    n, c = x.shape[0], x.shape[-1]
+    cg = c // groups
+    x3 = x.reshape(n, -1, c)
+    xf = x3.float()
+    mean_c = xf.mean(dim=1)                                   # (N, C)
+    mean2_c = (xf * xf).mean(dim=1)
+    mean_g = mean_c.view(n, groups, cg).mean(-1)              # (N, G)
+    mean2_g = mean2_c.view(n, groups, cg).mean(-1)
+    var_g = torch.clamp(mean2_g - mean_g * mean_g, min=0.0)
+    rstd_g = torch.rsqrt(var_g + eps)
+    rstd_c = rstd_g.repeat_interleave(cg, dim=-1)             # (N, C)
+    shift_c = (mean_g * rstd_g).repeat_interleave(cg, dim=-1)
+    a = rstd_c * gamma.float()[None]
+    b = beta.float()[None] - shift_c * gamma.float()[None]
+    y = xf * a[:, None] + b[:, None]
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def tiling(n: int, s: int, c: int) -> tuple[int, int]:
+    """(tiles per n, rows per tile) for the two kernel passes."""
+    vecs = c // 8
+    rows_in_flight = 4 * (512 // vecs)   # 4 = the kernels' row unroll
+    t = max(1, min(_MAX_TILES, math.ceil(_TARGET_BLOCKS / n),
+                   math.ceil(s / rows_in_flight)))
+    rows = math.ceil(s / t)
+    return math.ceil(s / rows), rows
+
+
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               groups: int, eps: float, silu: bool = False) -> torch.Tensor:
+    """GroupNorm over the last axis of channels-last `x` (+ optional SiLU).
+
+    gamma/beta: (C,) float32. Returns a tensor of x's shape and dtype.
+    """
+    if not use_kernel(x):
+        return group_norm_plain(x, gamma, beta, groups, eps, silu)
+    n, c = x.shape[0], x.shape[-1]
+    require(x.dim() >= 2, f"x must be (N, ..., C), got {tuple(x.shape)}")
+    require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
+    require(x.is_contiguous() and x.data_ptr() % 16 == 0,
+            "x must be contiguous and 16-byte aligned")
+    require(c % 8 == 0 and c <= _MAX_CHANNELS and c % groups == 0,
+            f"C={c} must be a multiple of 8, <= {_MAX_CHANNELS}, divisible by G={groups}")
+    for p in (gamma, beta):
+        require(p.dtype == torch.float32 and p.shape == (c,) and p.is_contiguous()
+                and p.device == x.device, "gamma/beta must be contiguous f32 (C,) on x's device")
+    s = x.numel() // (n * c)
+    require(s > 0, "empty input")
+    t, rows = tiling(n, s, c)
+    part1 = torch.empty((n, t, groups), dtype=torch.float32, device=x.device)
+    part2 = torch.empty_like(part1)
+    y = torch.empty_like(x)
+    lib, stream = kernels(), stream_handle(x)
+    check_launch("gn_stats", lib.gn_stats(
+        x.data_ptr(), part1.data_ptr(), part2.data_ptr(),
+        n, s, c, groups, t, rows, stream))
+    check_launch("gn_apply", lib.gn_apply(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part1.data_ptr(),
+        part2.data_ptr(), y.data_ptr(), n, s, c, groups, t, rows,
+        float(eps), int(silu), stream))
+    stats.launches += 1
+    return y

@@ -1,0 +1,230 @@
+"""Diffusion stage of the video -> 4D pipeline: sliding 16-frame windows,
+conditioned DDIM sampling, the 4-head geometry decode, masking,
+denormalisation and Plücker cameras. Port of WindowPredictor in
+geo4d_tpu/pipeline/inference.py (`reconstruct` and the group aligner are
+not ported yet).
+
+`predict_video` runs the CLIP tower and the VAE encoder once per unique
+frame and gathers the results into windows; the resampler runs per window
+because its query bank depends on the frame's position in the window.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from geo4d_tpu_torch.geometry.normalize import (
+    denormalize_inverse_depth,
+    denormalize_pointcloud_bbox2,
+    far_mask,
+    sky_mask,
+)
+from geo4d_tpu_torch.geometry.rays import cameras_from_plucker
+from geo4d_tpu_torch.models.diffusion import GeoDiffusion
+
+
+@dataclasses.dataclass(frozen=True)
+class InferenceConfig:
+    """Eval preset (the JAX package's InferenceConfig)."""
+
+    window: int = 16
+    stride: int = 4
+    ddim_steps: int = 5
+    ddim_eta: float = 0.0
+    cfg_scale: float = 1.0
+    cfg_img: Optional[float] = None
+    timestep_spacing: str = "uniform_trailing"
+    guidance_rescale: float = 0.7
+    sky_value: float = 1.05
+    sky_eps: float = 0.35
+    far_value: float = 1.99
+    denorm_alpha: float = 2.0
+    denorm_beta: float = 2.0
+    invalid_conf: float = 999.0
+    window_batch: int = 1          # windows per UNet call
+    sample_posterior: bool = True  # False: VAE posterior mode (deterministic)
+
+
+class StageTimer:
+    """Wall time per named stage, synchronising the device around each one.
+    Pass it as `timer=` to the predictor; times accumulate in `seconds`."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.seconds: Dict[str, float] = {}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        self._sync()
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
+def sliding_windows(n_frames: int, window: int = 16, stride: int = 4) -> np.ndarray:
+    """(G, window) frame indices: starts every `stride` frames plus a forced
+    tail window covering the last `window` frames."""
+    if n_frames < window:
+        raise ValueError(f"need >= {window} frames, got {n_frames}")
+    starts = list(range(0, n_frames - window + 1, stride))
+    if starts[-1] != n_frames - window:
+        starts.append(n_frames - window)
+    return np.stack([np.arange(s, s + window) for s in starts])
+
+
+def _stage(timer, name):
+    return timer(name) if timer is not None else contextlib.nullcontext()
+
+
+def _to_unit_range(frames: torch.Tensor) -> torch.Tensor:
+    """uint8 0..255 -> [-1, 1] float32 (the host expression of the JAX
+    package); float frames pass through."""
+    if frames.dtype == torch.uint8:
+        return (frames.float() / 255.0 - 0.5) * 2.0
+    return frames.float()
+
+
+class WindowPredictor:
+    """Runs the diffusion stage for batches of windows on one device."""
+
+    def __init__(self, model: GeoDiffusion, config: InferenceConfig = InferenceConfig(),
+                 device=None):
+        self.model = model
+        self.cfg = config
+        self.device = torch.device(device) if device is not None else next(model.parameters()).device
+
+    @torch.no_grad()
+    def _tail(self, ctx, uncond, z_video, fs, generator, x_T, timer):
+        cfg = self.cfg
+        samples = self.model.sample_window(
+            ctx, z_video, fs, generator=generator, uncond_context=uncond[0],
+            uncond_img_context=uncond[1], num_steps=cfg.ddim_steps,
+            timestep_spacing=cfg.timestep_spacing, eta=cfg.ddim_eta, cfg_scale=cfg.cfg_scale,
+            cfg_img=cfg.cfg_img, guidance_rescale=cfg.guidance_rescale, x_T=x_T, timer=timer)
+        with _stage(timer, "decode"):
+            dec = self.model.decode_geometry(samples)
+        with _stage(timer, "postprocess"):
+            return self._postprocess(dec)
+
+    def _uncond(self, text_ctx, uncond_text_ctx, img_ctx, g, t, frame_shape):
+        """CFG branches: uncond = empty-prompt text + zero-image tokens (the
+        multi-cond image-uncond branch is [empty text | real image])."""
+        cfg = self.cfg
+        if cfg.cfg_scale == 1.0:
+            return None, None
+        zeros = torch.zeros((1, t) + tuple(frame_shape), device=self.device)
+        zero_img = self.model.embed_frames(zeros).expand(g, -1, -1)
+        uncond = torch.cat([uncond_text_ctx.expand(g, -1, -1), zero_img], dim=1)
+        uncond_img = None
+        if cfg.cfg_img is not None and cfg.cfg_img != 1.0:
+            uncond_img = torch.cat([uncond_text_ctx.expand(g, -1, -1), img_ctx], dim=1)
+        return uncond, uncond_img
+
+    def _postprocess(self, dec: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        pc = dec["pointmap_conf"]
+        pts, conf_raw = pc[..., :3], pc[..., 3]
+        conf = F.softplus(conf_raw)
+        invalid = sky_mask(pts, cfg.sky_value, cfg.sky_eps) | far_mask(pts, cfg.far_value)
+        conf = torch.where(invalid, torch.full_like(conf, cfg.invalid_conf), conf)
+        inv_conf = torch.where(invalid, torch.zeros_like(conf), 1.0 / conf)
+        pts = denormalize_pointcloud_bbox2(pts, cfg.denorm_alpha, cfg.denorm_beta)
+        inv_depth = denormalize_inverse_depth(dec["inv_depth"][..., 0])
+        traj = torch.stack([cameras_from_plucker(r, m)[0]
+                            for r, m in zip(dec["raymap"], dec["crossmap"])])
+        # finite guards: degenerate samples must not poison the aligner
+        return {
+            "pts3d": torch.clamp(torch.nan_to_num(pts, nan=0.0, posinf=1e4, neginf=-1e4),
+                                 -1e4, 1e4),
+            "conf": torch.clamp(torch.nan_to_num(inv_conf, nan=0.0), 0.0, 1e6),
+            "valid": ~invalid,
+            "inv_depth": torch.nan_to_num(inv_depth, nan=0.0),
+            "traj": torch.nan_to_num(traj, nan=0.0),
+        }
+
+    def _chunks(self, g_total: int):
+        bs = self.cfg.window_batch
+        for start in range(0, g_total, bs):
+            yield start, min(bs, g_total - start), bs
+
+    @staticmethod
+    def _pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+        return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
+
+    @torch.no_grad()
+    def predict_windows(self, frames_windows: np.ndarray, text_ctx: np.ndarray, fps: int,
+                        seed: int = 123, uncond_text_ctx: Optional[np.ndarray] = None,
+                        x_T: Optional[np.ndarray] = None, timer=None) -> Dict[str, np.ndarray]:
+        """Diffusion for (G, T, H, W, 3) window stacks (uint8 or [-1, 1]).
+        `x_T` (G, T, h, w, 16) fixes each window's initial noise."""
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        text = torch.as_tensor(text_ctx, dtype=torch.float32, device=dev)
+        uncond_text = text if uncond_text_ctx is None else torch.as_tensor(
+            uncond_text_ctx, dtype=torch.float32, device=dev)
+        outs: List[Dict[str, np.ndarray]] = []
+        for start, n, bs in self._chunks(frames_windows.shape[0]):
+            frames = self._pad(_to_unit_range(torch.as_tensor(
+                frames_windows[start:start + n], device=dev)), bs - n)
+            g, t = frames.shape[:2]
+            with _stage(timer, "conditioning"):
+                img_ctx = self.model.embed_frames(frames)
+                ctx = torch.cat([text.expand(g, -1, -1), img_ctx], dim=1)
+                enc_gen = gen if self.cfg.sample_posterior else None
+                z_video = self.model.encode_first_stage(frames, enc_gen)
+                uncond = self._uncond(text, uncond_text, img_ctx, g, t, frames.shape[2:])
+            xt = None
+            if x_T is not None:
+                xt = self._pad(torch.as_tensor(x_T[start:start + n], dtype=torch.float32,
+                                               device=dev), bs - n)
+            fs = torch.full((g,), fps, dtype=torch.int32, device=dev)
+            out = self._tail(ctx, uncond, z_video, fs, gen, xt, timer)
+            outs.append({k: v[:n].cpu().numpy() for k, v in out.items()})
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+    @torch.no_grad()
+    def predict_video(self, frames: np.ndarray, groups: np.ndarray, text_ctx: np.ndarray,
+                      fps: int, seed: int = 123, uncond_text_ctx: Optional[np.ndarray] = None,
+                      return_device: bool = False, timer=None) -> Dict[str, object]:
+        """Diffusion over sliding windows of a (N, H, W, 3) video (uint8 or
+        [-1, 1]); `groups` (G, T) holds each window's frame indices. With
+        `return_device` the outputs stay torch tensors on the device."""
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        text = torch.as_tensor(text_ctx, dtype=torch.float32, device=dev)
+        uncond_text = text if uncond_text_ctx is None else torch.as_tensor(
+            uncond_text_ctx, dtype=torch.float32, device=dev)
+        video = _to_unit_range(torch.as_tensor(frames, device=dev))
+        with _stage(timer, "clip"):
+            tokens = self.model.clip_tokens_chunked(video)               # (N, 257, width)
+        with _stage(timer, "vae_encode"):
+            enc_gen = gen if self.cfg.sample_posterior else None
+            z_frames = self.model.encode_frames_chunked(video, enc_gen)  # (N, h, w, 4)
+        gidx_all = torch.as_tensor(np.asarray(groups), dtype=torch.long, device=dev)
+        outs: List[Dict[str, torch.Tensor]] = []
+        for start, n, bs in self._chunks(gidx_all.shape[0]):
+            gidx = self._pad(gidx_all[start:start + n], bs - n)
+            g, t = gidx.shape
+            with _stage(timer, "resampler"):
+                img_ctx = self.model.resample_tokens(tokens[gidx])      # (G, T*16, ctx)
+                ctx = torch.cat([text.expand(g, -1, -1), img_ctx], dim=1)
+                uncond = self._uncond(text, uncond_text, img_ctx, g, t, video.shape[1:])
+            fs = torch.full((g,), fps, dtype=torch.int32, device=dev)
+            out = self._tail(ctx, uncond, z_frames[gidx], fs, gen, None, timer)
+            outs.append({k: v[:n] for k, v in out.items()})
+        merged = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        if return_device:
+            return merged
+        return {k: v.cpu().numpy() for k, v in merged.items()}

@@ -11,15 +11,22 @@ the final `ok` line):
 2. build: compiles geo4d_tpu_torch/csrc/*.cu with nvcc for sm_90a into
    build/geo4d_tpu_torch/ and loads the library.
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, in bf16, at the shapes the main path gives it; prints max abs
-   and rel error and the median time of both (CUDA events, after warm-up).
+   the card, in bf16, at the shapes the main path gives it, and against a
+   second launch of itself (bit for bit); prints max abs and rel error and
+   the median time of both (CUDA events, after warm-up).
 4. slice: the shipped model at full width (random-normal weights, seed 0)
-   runs WindowPredictor.predict_video over a seeded 20-frame 256x576 video
-   (2 sliding windows, 5-step DDIM); checks output shapes and finiteness,
-   that every kernel launched during that run and that no plain version ran
-   on a CUDA tensor; prints per-stage wall times and peak memory.
+   computes its text context with its CLIP text tower and the port's
+   tokenizer, then runs `reconstruct` over a seeded 20-frame 256x576 video
+   (2 sliding windows, 5-step DDIM, the group aligner with the default 500
+   iterations) and exports the results directory to a temporary directory;
+   checks output shapes and finiteness, the results files, that every kernel
+   launched during that run and that no plain version ran on a CUDA tensor;
+   prints PnP failures, per-stage wall times and peak memory.
 5. reference: the tiny preset in bf16 on the card (kernels) against the
    same weights in float32 on the CPU (plain versions), on a small input.
+6. align_reference: the group aligner on an analytic 20-frame 64x144 scene
+   (windows of 16, stride 4), float32 on the card against float32 on the
+   CPU, and both against the scene's ground truth.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -28,9 +35,11 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,6 +59,13 @@ BF16_ATOL = 2 ** -6
 BF16_RTOL = 2 ** -7
 # tiny preset, bf16 on the card vs float32 on the CPU: relative L2 error
 REF_REL_L2 = 1e-2
+# aligner, float32 card vs float32 CPU after 500 Adam steps: poses compared
+# relative to frame 0 (the world frame is a free gauge of the objective)
+ALIGN_ROT_DEG = 0.1
+ALIGN_REL = 1e-3
+# nothing of these may be loaded by the end of the run
+FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "cv2", "geo4d_tpu")
+PROMPT = "Output a video that assigns each 3D location in the world a consistent color."
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -113,16 +129,19 @@ def kernel_phase(dev):
     results = {}
     for name, label, kernel, plain in cases:
         got = kernel()
+        repeat = torch.equal(got, kernel())     # a second launch on the same inputs
         want = plain()
         torch.cuda.synchronize()
         max_abs, max_rel = compare(f"{name} {label}", got, want)
+        if not repeat:
+            raise AssertionError(f"{name} {label}: two launches on the same input differ")
         del got, want
         ms_plain1 = median_ms(plain)
         ms = median_ms(kernel)
         ms_plain2 = median_ms(plain)
         plain_ms = min(ms_plain1, ms_plain2)
         print(f"kernel {name:18s} {label:40s} max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} repeat_equal={repeat}", flush=True)
         r = results.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                                       "shape": label})
         r["max_abs_err"] = max(r["max_abs_err"], max_abs)
@@ -131,12 +150,15 @@ def kernel_phase(dev):
 
 
 def slice_phase(dev):
+    from geo4d_tpu_torch.cli.common import prepare_inference_params
+    from geo4d_tpu_torch.core.timing import StageTimer
     from geo4d_tpu_torch.models.presets import flagship, init_random_
     from geo4d_tpu_torch.ops import flash_attention as fa
     from geo4d_tpu_torch.ops import group_norm as gn
     from geo4d_tpu_torch.ops import temporal_attention as ta
-    from geo4d_tpu_torch.pipeline.inference import (InferenceConfig, StageTimer,
-                                                    WindowPredictor, sliding_windows)
+    from geo4d_tpu_torch.pipeline.export import save_results_dir
+    from geo4d_tpu_torch.pipeline.inference import (InferenceConfig, WindowPredictor,
+                                                    reconstruct, sliding_windows)
 
     t0 = time.perf_counter()
     model = init_random_(flagship(), dev, seed=0).eval()
@@ -144,16 +166,27 @@ def slice_phase(dev):
     n_params = sum(p.numel() for p in model.parameters())
     print(f"slice: flagship built, {n_params} parameters, {time.perf_counter() - t0:.2f} s",
           flush=True)
+    t0 = time.perf_counter()
+    text_ctx, uncond_text_ctx = prepare_inference_params(model, PROMPT)
+    if text_ctx.shape != (1, 77, 1024) or not np.isfinite(text_ctx).all():
+        raise AssertionError(f"text context: shape {text_ctx.shape} or non-finite values")
+    print(f"slice: text context from the CLIP text tower {time.perf_counter() - t0:.3f} s, "
+          f"sum {float(text_ctx.astype(np.float64).sum())!r} "
+          f"(tower dropped; {sum(p.numel() for p in model.parameters())} parameters left)",
+          flush=True)
     rng = np.random.default_rng(0)
     frames = rng.integers(0, 256, size=(20, 256, 576, 3), dtype=np.uint8)
     groups = sliding_windows(20, 16, 4)
-    text_ctx = rng.normal(size=(1, 77, 1024)).astype(np.float32)
     predictor = WindowPredictor(model, InferenceConfig(), device=dev)
 
     t0 = time.perf_counter()
-    predictor.predict_video(frames, groups, text_ctx, fps=24, seed=123, return_device=True)
+    warm = predictor.predict_video(frames, groups, text_ctx, fps=24, seed=123,
+                                   return_device=True)
     torch.cuda.synchronize()
-    print(f"slice: warm-up run {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"slice: warm-up predict_video {time.perf_counter() - t0:.3f} s", flush=True)
+    # checksums, to tell whether the same seed gives the same predictions
+    warm_sums = {k: float(v.double().sum()) for k, v in warm.items()}
+    del warm
 
     stats = {"group_norm": gn.stats, "flash_attention": fa.stats,
              "temporal_attention": ta.stats}
@@ -162,12 +195,13 @@ def slice_phase(dev):
     for s in stats.values():
         s.reset()
     t0 = time.perf_counter()
-    out = predictor.predict_video(frames, groups, text_ctx, fps=24, seed=123,
-                                  return_device=True, timer=timer)
+    scene, out, timing = reconstruct(model, frames, text_ctx, fps=24, seed=123,
+                                     uncond_text_ctx=uncond_text_ctx, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: s.launches for k, s in stats.items()}
     plain_on_cuda = {k: s.plain_on_cuda for k, s in stats.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
 
     g, t, h, w = groups.shape[0], 16, 256, 576
     want = {"pts3d": (g, t, h, w, 3), "conf": (g, t, h, w), "valid": (g, t, h, w),
@@ -175,6 +209,8 @@ def slice_phase(dev):
     for k, shape in want.items():
         if tuple(out[k].shape) != shape:
             raise AssertionError(f"{k}: shape {tuple(out[k].shape)} != {shape}")
+        if out[k].device.type != "cuda":
+            raise AssertionError(f"{k}: left the device ({out[k].device})")
         if k != "valid" and not bool(torch.isfinite(out[k]).all()):
             raise AssertionError(f"{k}: non-finite values")
     for k, n in launches.items():
@@ -182,12 +218,45 @@ def slice_phase(dev):
             raise AssertionError(f"kernel {k} was not launched on the main path")
     if any(plain_on_cuda.values()):
         raise AssertionError(f"a plain version ran on a CUDA tensor: {plain_on_cuda}")
-    print(f"slice: predict_video 2 windows x 16 frames 256x576: wall {wall:.4f} s "
+    if scene.params["log_depth"].device.type != "cuda":
+        raise AssertionError("the aligner did not run on the card")
+    if not np.isfinite(scene.final_loss):
+        raise AssertionError(f"aligner final loss {scene.final_loss}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "smoke")
+        save_results_dir(out_dir, scene, rgb_frames=frames)
+        traj = np.loadtxt(os.path.join(out_dir, "pred_traj.txt"))
+        K = np.loadtxt(os.path.join(out_dir, "pred_intrinsics.txt"))
+        depths = np.stack([np.load(os.path.join(out_dir, f"frame_{i:04d}.npy")) for i in range(20)])
+        confs = [os.path.exists(os.path.join(out_dir, f"conf_{i:04d}.npy")) for i in range(20)]
+    if traj.shape != (20, 8) or K.shape != (20, 9) or depths.shape != (20, h, w) or not all(confs):
+        raise AssertionError(f"results files: traj {traj.shape}, intrinsics {K.shape}, "
+                             f"depths {depths.shape}, conf files {sum(confs)}")
+    if not (np.isfinite(traj).all() and np.isfinite(K).all() and np.isfinite(depths).all()):
+        raise AssertionError("results files hold non-finite values")
+    export_s = time.perf_counter() - t0
+
+    sec = timer.seconds
+    align_iters = scene.cfg.n_iter
+    per_iter = (sec.get("align_phase1", 0.0) + sec.get("align_phase2", 0.0)) / align_iters
+    print(f"slice: reconstruct 20 frames 256x576 (2 windows x 16, {align_iters} aligner "
+          f"iterations): wall {wall:.4f} s; diffusion_s {timing['diffusion_s']:.4f} "
+          f"alignment_s {timing['alignment_s']:.4f} sec_per_frame {timing['sec_per_frame']:.4f} "
           f"(device synchronised around each stage)")
-    print("slice: stage seconds " + json.dumps({k: round(v, 5) for k, v in timer.seconds.items()}))
-    print(f"slice: peak memory allocated {torch.cuda.max_memory_allocated(dev)} bytes")
+    print("slice: stage seconds " + json.dumps({k: round(v, 5) for k, v in sec.items()}))
+    print(f"slice: aligner {per_iter * 1e3:.3f} ms per iteration; PnP failures "
+          f"{scene.pnp_failures} of 20 frames (identity pose); final loss {scene.final_loss!r}; "
+          f"focal {float(scene.get_focals()[0]):.3f}")
+    print(f"slice: results directory written and checked in {export_s:.2f} s "
+          f"(pred_traj {traj.shape}, pred_intrinsics {K.shape}, 20 depth and conf maps)")
+    print(f"slice: peak memory allocated {peak} bytes")
     print(f"slice: launches {json.dumps(launches)} plain_on_cuda {json.dumps(plain_on_cuda)}")
     print(f"slice: valid fraction {float(out['valid'].float().mean()):.4f}", flush=True)
+    sums = {k: float(v.double().sum()) for k, v in out.items()}
+    print(f"slice: prediction sums {json.dumps(sums)}; the warm-up's (same seed) "
+          f"{'equal' if sums == warm_sums else json.dumps(warm_sums)}", flush=True)
     return launches
 
 
@@ -212,6 +281,9 @@ def reference_phase(dev):
     x_T = rng.normal(size=(2, 4, 8, 16, 16)).astype(np.float32)
     want = WindowPredictor(ref, cfg).predict_windows(frames, text_ctx, 24, x_T=x_T)
     got = WindowPredictor(card, cfg, device=dev).predict_windows(frames, text_ctx, 24, x_T=x_T)
+    again = WindowPredictor(card, cfg, device=dev).predict_windows(frames, text_ctx, 24, x_T=x_T)
+    print(f"reference: a second card run equals the first: "
+          f"{all(np.array_equal(got[k], again[k]) for k in got)}")
     for k in ("pts3d", "conf", "inv_depth"):
         rel = float(np.linalg.norm(got[k] - want[k]) / max(np.linalg.norm(want[k]), 1e-12))
         print(f"reference: {k} relative L2 error {rel:.3e} (limit {REF_REL_L2})")
@@ -219,6 +291,56 @@ def reference_phase(dev):
             raise AssertionError(f"reference: {k} relative L2 error {rel:.3e} > {REF_REL_L2}")
     agree = float((got["valid"] == want["valid"]).mean())
     print(f"reference: valid masks agree on {agree:.4f} of points", flush=True)
+
+
+def align_reference_phase(dev):
+    """The aligner (default config: 500 iterations, calibration at 150) on
+    the card and on the CPU, both float32, same inputs and seeds."""
+    from geo4d_tpu_torch.alignment.optimizer import AlignerConfig
+    from geo4d_tpu_torch.evals.trajectory import Trajectory, eval_metrics
+    from geo4d_tpu_torch.pipeline.inference import align_predictions
+    from geo4d_tpu_torch.tools.profile_aligner import synthetic_scene
+
+    sc = synthetic_scene()
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        preds = {k: torch.from_numpy(v).to(device) for k, v in sc["preds"].items()}
+        t0 = time.perf_counter()
+        al = align_predictions(sc["groups"], preds, sc["hw"], AlignerConfig())
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        print(f"align_reference: {name} {time.perf_counter() - t0:.3f} s, final loss "
+              f"{al.final_loss:.6f}, PnP failures {al.pnp_failures}", flush=True)
+        runs[name] = al
+    card, cpu = runs["cuda"], runs["cpu"]
+
+    def rel_to_first(P):
+        return np.linalg.inv(P[0])[None] @ P
+
+    Pa = rel_to_first(card.get_im_poses().astype(np.float64))
+    Pb = rel_to_first(cpu.get_im_poses().astype(np.float64))
+    # angle between two rotations from their chord, ||Ra - Rb||_F = 2 sqrt(2) sin(a / 2)
+    # (arccos of the trace cannot resolve float32 rotations below ~0.03 deg)
+    chord = np.linalg.norm(Pa[:, :3, :3] - Pb[:, :3, :3], axis=(1, 2))
+    rot = float(np.degrees(2 * np.arcsin(np.clip(chord / (2 * np.sqrt(2)), 0, 1))).max())
+    focal_rel = abs(float(card.get_focals()[0]) / float(cpu.get_focals()[0]) - 1)
+    da, db = card.get_depthmaps(), cpu.get_depthmaps()
+    depth_rel = float(np.linalg.norm(da - db) / np.linalg.norm(db))
+    print(f"align_reference: card vs CPU: rotation {rot:.4f} deg (limit {ALIGN_ROT_DEG}), "
+          f"focal {focal_rel:.3e}, depth relative L2 {depth_rel:.3e} (limit {ALIGN_REL})")
+    if not (rot <= ALIGN_ROT_DEG and focal_rel <= ALIGN_REL and depth_rel <= ALIGN_REL):
+        raise AssertionError("align_reference: the card's aligner disagrees with the CPU's")
+    for name, al in runs.items():
+        ate = eval_metrics(Trajectory.from_matrices(al.get_im_poses()),
+                           Trajectory.from_matrices(sc["poses"]))[0]
+        d = al.get_depthmaps()
+        s = np.median(sc["depths"]) / np.median(d)
+        abs_rel = float(np.mean(np.abs(s * d - sc["depths"]) / sc["depths"]))
+        f = float(al.get_focals()[0])
+        print(f"align_reference: {name} vs ground truth: focal {f:.3f} (true {sc['focal']}), "
+              f"ATE {ate:.5f}, depth AbsRel {abs_rel:.5f}", flush=True)
+        if not (abs(f / sc["focal"] - 1) < 0.2 and ate < 0.05 and abs_rel < 0.05):
+            raise AssertionError(f"align_reference: {name} misses the ground-truth bounds")
 
 
 def main() -> int:
@@ -245,13 +367,14 @@ def main() -> int:
 
     with torch.no_grad():
         results = kernel_phase(dev)
-        launches = slice_phase(dev)
+    launches = slice_phase(dev)
+    with torch.no_grad():
         reference_phase(dev)
+    align_reference_phase(dev)
 
-    foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "geo4d_tpu"))
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN_ROOTS)
     if foreign:
-        raise AssertionError(f"the port imported JAX or the JAX package: {foreign[:5]}")
+        raise AssertionError(f"the port imported JAX, OpenCV or the JAX package: {foreign[:5]}")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -1,13 +1,26 @@
 """geo4d_tpu_torch — the PyTorch/CUDA port of geo4d_tpu for one NVIDIA H100.
 
 Same subpackage layout as the JAX package, channels-last activations:
-  core/       numpy noise-schedule tables
+  core/       numpy noise-schedule tables, YAML config and model registry,
+              stage timer
+  data/       CLIP tokenizer, frame loading for the CLI
   ops/        kernel gate and loader; GroupNorm, spatial and temporal
               attention wrappers, each with its plain PyTorch version
   csrc/       the hand-written CUDA kernels (built with nvcc at first use)
-  nn/         basics, attention stack, CLIP vision tower, resampler
-  models/     UNet3D, AutoencoderKL, GeoDiffusion, presets, weights bridge
+  nn/         basics, attention stack, CLIP text and vision towers, resampler
+  models/     UNet3D, AutoencoderKL, GeoDiffusion, presets, checkpoint loader
   sampling/   DDIM
-  geometry/   masks, denormalisation, Plücker -> cameras
-  pipeline/   WindowPredictor (the diffusion stage)
+  geometry/   masks, denormalisation, Plücker -> cameras, SE3/Sim3 codecs,
+              MoGe focal recovery, RANSAC-PnP
+  evals/      the IRLS scale-shift fit of the aligner's calibration,
+              trajectory metrics
+  alignment/  group aligner, its initialisation, point-cloud cleanup
+  pipeline/   WindowPredictor, align_predictions, reconstruct, results export
+  cli/        the inference CLI and its model building
+  tools/      the aligner profile on the card
+
+The port imports nothing of JAX, Flax, Optax or OpenCV, and nothing of the
+JAX package `geo4d_tpu`: the few numpy-only pieces it needs from there
+(trajectory metrics, results export, YAML config, tokenizer, frame loading)
+are its own copies, held equal to the originals by tests/test_torch_*.py.
 """

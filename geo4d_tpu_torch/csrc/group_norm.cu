@@ -46,16 +46,15 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 }
 
 // grid (T, N); block V * R threads with V = C / 8 channel vectors and R rows
-// in flight. Dynamic shared memory: 2 * C floats.
+// in flight. Dynamic shared memory: R * 2 * C floats (at most 32 KB, since
+// R * C = 8 * blockDim.x <= 4096).
 __global__ void gn_stats_kernel(const __nv_bfloat16* __restrict__ x,
                                 float* __restrict__ part1,
                                 float* __restrict__ part2, int S, int C, int G,
                                 int T, int rows_per_tile) {
-  extern __shared__ float sm[];  // s1[C] | s2[C]
+  extern __shared__ float red[];  // per row of threads r: s1[C] | s2[C]
   const int tile = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
   const int V = C / 8, R = blockDim.x / V, v = tid % V, r = tid / V;
-  for (int i = tid; i < 2 * C; i += blockDim.x) sm[i] = 0.f;
-  __syncthreads();
 
   const int row0 = tile * rows_per_tile;
   const int row1 = min(S, row0 + rows_per_tile);
@@ -80,10 +79,19 @@ __global__ void gn_stats_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
   }
+  // the R rows of threads are summed in a fixed order (not with atomics),
+  // so a launch on the same input gives the same bits
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    atomicAdd(&sm[v * 8 + j], a1[j]);
-    atomicAdd(&sm[C + v * 8 + j], a2[j]);
+    red[r * 2 * C + v * 8 + j] = a1[j];
+    red[r * 2 * C + C + v * 8 + j] = a2[j];
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * C; i += blockDim.x) {
+    // row 0 takes the totals: column i is read and written by this thread only
+    float s = red[i];
+    for (int k = 1; k < R; ++k) s += red[k * 2 * C + i];
+    red[i] = s;
   }
   __syncthreads();
 
@@ -91,8 +99,8 @@ __global__ void gn_stats_kernel(const __nv_bfloat16* __restrict__ x,
   for (int g = tid; g < G; g += blockDim.x) {
     float s1 = 0.f, s2 = 0.f;
     for (int c = g * cg; c < (g + 1) * cg; ++c) {
-      s1 += sm[c];
-      s2 += sm[C + c];
+      s1 += red[c];
+      s2 += red[C + c];
     }
     const size_t o = ((size_t)n * T + tile) * G + g;
     part1[o] = s1;
@@ -182,8 +190,9 @@ int block_threads(int C) { return (C / 8) * (512 / (C / 8)); }
 extern "C" int gn_stats(const void* x, void* part1, void* part2, int N, int S,
                         int C, int G, int T, int rows_per_tile, void* stream) {
   const int threads = block_threads(C);
+  const int R = threads / (C / 8);
   dim3 grid(T, N);
-  gn_stats_kernel<<<grid, threads, 2 * C * sizeof(float),
+  gn_stats_kernel<<<grid, threads, R * 2 * C * sizeof(float),
                     (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (float*)part1, (float*)part2, S, C, G, T,
       rows_per_tile);

@@ -1,69 +1,76 @@
-"""Weights bridge: a JAX param tree -> this package's state dict.
+"""Published checkpoints -> this package's modules.
 
-The port's modules carry the original Geo4D PyTorch key names, so the
-mapping is geo4d_tpu/models/convert.py's (a numpy-only module): its
-`*_torch_key` functions name each leaf's key and `inverse_transform` puts
-each array in PyTorch's layout. Published checkpoints load the same way,
-through `strip_prefixes`.
+The port's modules carry the original Geo4D PyTorch key names, so a
+published `.ckpt` state dict loads into each tower once its prefix is
+stripped: the model checkpoint holds every tower but the pointmap VAE under
+CKPT_PREFIXES, and `vae.ckpt` holds the pointmap VAE under `model.`.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
-
-from geo4d_tpu.models.convert import (
-    clip_vision_torch_key,
-    inverse_transform,
-    resampler_torch_key,
-    unet_torch_key,
-    vae_torch_key,
-)
-
-KEY_FNS = {
-    "unet": unet_torch_key,
-    "vae": vae_torch_key,
-    "pointmap_vae": vae_torch_key,
-    "clip_img": clip_vision_torch_key,
-    "resampler": resampler_torch_key,
-}
 
 # tower -> attribute of GeoDiffusion holding it
 TOWER_MODULES = {"unet": "unet", "vae": "vae", "pointmap_vae": "pointmap_vae",
-                 "clip_img": "image_encoder", "resampler": "resampler"}
+                 "clip_text": "text_encoder", "clip_img": "image_encoder",
+                 "resampler": "resampler"}
+
+# key prefix of each tower in the published model checkpoint
+CKPT_PREFIXES = {"unet": "model.diffusion_model.", "vae": "first_stage_model.",
+                 "clip_text": "cond_stage_model.model.", "clip_img": "embedder.model.",
+                 "resampler": "image_proj_model."}
 
 
-def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> List[Tuple[List[str], Any]]:
-    if isinstance(tree, Mapping):
-        out = []
-        for k, v in tree.items():
-            out.extend(_leaves(v, path + (str(k),)))
-        return out
-    return [(list(path), tree)]
+def strip_prefixes(state_dict: Dict[str, Any]) -> Dict[str, Any]:
+    """Unwrap the Lightning (`state_dict`) and DeepSpeed (`module`, keys
+    under `_forward_module.`) layouts, and rename the reference's
+    `framestride_embed` to `fps_embedding`."""
+    if "state_dict" in state_dict:
+        state_dict = state_dict["state_dict"]
+    if "module" in state_dict and isinstance(state_dict["module"], dict):
+        state_dict = {k[len("_forward_module."):]: v for k, v in state_dict["module"].items()}
+    return {k.replace("framestride_embed", "fps_embedding"): v for k, v in state_dict.items()}
 
 
-def state_dict_from_jax(params: Any, tower: str) -> Dict[str, torch.Tensor]:
-    """One tower's JAX param tree ({'params': ...}, arrays as numpy or JAX
-    arrays) -> the state dict of the matching module of this package.
-    Raises on a leaf with no mapping rule."""
-    key_fn = KEY_FNS[tower]
-    out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _leaves(params):
-        key = key_fn(path)
-        if key is None:
-            raise KeyError(f"{tower}: no torch key for {'/'.join(path)}")
-        arr = inverse_transform(path[-1], np.asarray(leaf, dtype=np.float32))
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
-    return out
+def load_tower(module: torch.nn.Module, state_dict: Mapping, prefix: str = "",
+               name: str = "") -> int:
+    """Load the tensors under `prefix` into `module`. Every tensor of the
+    module must be present (tensors the module does not have are ignored:
+    a checkpoint carries other towers and unused layers). Raises KeyError
+    listing the missing ones. Returns the count of tensors loaded."""
+    want = module.state_dict().keys()
+    sub = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+    missing = [k for k in want if k not in sub]
+    if missing:
+        raise KeyError(f"{name or prefix}: {len(missing)} of {len(want)} tensors missing from "
+                       f"the checkpoint, e.g. {missing[:3]}")
+    module.load_state_dict({k: sub[k] for k in want}, strict=True)
+    return len(want)
 
 
-def load_from_jax(model: torch.nn.Module, params: Dict[str, Any]) -> None:
-    """Load every tower present in a JAX `init_params`-style dict into a
-    GeoDiffusion, strictly."""
-    for tower, attr in TOWER_MODULES.items():
-        module = getattr(model, attr)
-        if tower in params:
-            module.load_state_dict(state_dict_from_jax(params[tower], tower), strict=True)
+def load_checkpoints(model: torch.nn.Module, ckpt_path: Optional[str] = None,
+                     vae_ckpt_path: Optional[str] = None, verbose: bool = True
+                     ) -> Dict[str, int]:
+    """Fill a GeoDiffusion from the published checkpoints: the model .ckpt
+    (Lightning or DeepSpeed layout) for every tower the model has, and
+    `vae.ckpt` for the pointmap VAE. Plain tensor checkpoints only
+    (`weights_only` unpickling). Returns {tower: tensors loaded}; a tower
+    with tensors missing raises."""
+    reports: Dict[str, int] = {}
+    if ckpt_path:
+        sd = strip_prefixes(torch.load(ckpt_path, map_location="cpu", weights_only=True))
+        for tower, prefix in CKPT_PREFIXES.items():
+            module = getattr(model, TOWER_MODULES[tower])
+            if module is not None:
+                reports[tower] = load_tower(module, sd, prefix, tower)
+    if vae_ckpt_path:
+        raw = torch.load(vae_ckpt_path, map_location="cpu", weights_only=True)
+        reports["pointmap_vae"] = load_tower(model.pointmap_vae, raw.get("state_dict", raw),
+                                             "model.", "pointmap_vae")
+    if verbose:
+        for tower, used in reports.items():
+            print(f"[ckpt] {tower}: {used} tensors loaded, 0 missing")
+    return reports

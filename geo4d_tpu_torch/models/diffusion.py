@@ -19,7 +19,7 @@ from torch import nn
 from geo4d_tpu_torch.core.schedules import DiffusionSchedule
 from geo4d_tpu_torch.models.autoencoder import AutoencoderKL
 from geo4d_tpu_torch.models.unet3d import UNet3D
-from geo4d_tpu_torch.nn.clip import CLIPVisionEncoder, clip_preprocess
+from geo4d_tpu_torch.nn.clip import CLIPTextEncoder, CLIPVisionEncoder, clip_preprocess
 from geo4d_tpu_torch.nn.resampler import Resampler
 from geo4d_tpu_torch.sampling.ddim import DDIMTables, ddim_sample
 
@@ -28,14 +28,17 @@ SCALE_FACTOR = 0.18215
 
 class GeoDiffusion(nn.Module):
     """Module bundle: `unet`, `vae`, `pointmap_vae` (with the confidence
-    adaptor), `image_encoder`, `resampler`, plus the noise schedule."""
+    adaptor), `text_encoder` (None once the text context is computed),
+    `image_encoder`, `resampler`, plus the noise schedule."""
 
     def __init__(self, unet: UNet3D, vae: AutoencoderKL, pointmap_vae: AutoencoderKL,
                  image_encoder: CLIPVisionEncoder, resampler: Resampler,
                  schedule: Optional[DiffusionSchedule] = None,
-                 scale_factor: float = SCALE_FACTOR):
+                 scale_factor: float = SCALE_FACTOR,
+                 text_encoder: Optional[CLIPTextEncoder] = None):
         super().__init__()
         self.unet = unet
+        self.text_encoder = text_encoder
         self.vae = vae
         self.pointmap_vae = pointmap_vae
         self.image_encoder = image_encoder
@@ -98,6 +101,10 @@ class GeoDiffusion(nn.Module):
         """Flat (N, H, W, 3) [-1, 1] frames -> (N, 257, width) CLIP tokens."""
         return torch.cat([self.image_encoder(clip_preprocess(frames[i:i + chunk]))
                           for i in range(0, frames.shape[0], chunk)])
+
+    def embed_text(self, token_ids: torch.Tensor) -> torch.Tensor:
+        """(B, 77) int token ids -> (B, 77, ctx) float32 text context."""
+        return self.text_encoder(token_ids)
 
     def resample_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, T, 257, width) -> (B, T*16, ctx) image context."""

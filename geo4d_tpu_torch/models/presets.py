@@ -8,7 +8,7 @@ import torch
 from geo4d_tpu_torch.models.autoencoder import AutoencoderKL, VAEConfig
 from geo4d_tpu_torch.models.diffusion import GeoDiffusion
 from geo4d_tpu_torch.models.unet3d import UNet3D
-from geo4d_tpu_torch.nn.clip import CLIPVisionEncoder
+from geo4d_tpu_torch.nn.clip import CLIPTextEncoder, CLIPVisionEncoder
 from geo4d_tpu_torch.nn.resampler import Resampler
 
 
@@ -24,12 +24,17 @@ def flagship(dtype=torch.bfloat16, device="meta") -> GeoDiffusion:
             pointmap_vae=AutoencoderKL(with_adaptor=True, dtype=dtype),
             image_encoder=CLIPVisionEncoder(dtype=dtype),
             resampler=Resampler(dtype=dtype),
+            text_encoder=CLIPTextEncoder(dtype=dtype),
         )
 
 
 def tiny(temporal_length: int = 4, dtype=torch.float32, device="cpu") -> GeoDiffusion:
     """Every tower present at ~1/100 of the channel counts (the JAX tiny
-    preset's shapes)."""
+    preset's shapes). One difference: the text tower keeps the tokenizer's
+    full vocabulary (49408 rows of width 64), since the shared tokenizer's
+    ids (start/end of text are 49406/49407) must index it; the JAX tiny
+    preset's 128-row table works only because XLA clamps out-of-range
+    gathers."""
     ctx_dim = 64
     vae_cfg = VAEConfig(ch=16, ch_mult=(1, 2, 2, 2), num_res_blocks=1, adaptor_ch=16)
     with torch.device(device):
@@ -44,6 +49,7 @@ def tiny(temporal_length: int = 4, dtype=torch.float32, device="cpu") -> GeoDiff
             resampler=Resampler(dim=ctx_dim, depth=1, dim_head=16, heads=4, num_queries=16,
                                 embedding_dim=48, output_dim=ctx_dim,
                                 video_length=temporal_length, dtype=dtype),
+            text_encoder=CLIPTextEncoder(width=ctx_dim, heads=4, layers=2, dtype=dtype),
         )
 
 

@@ -12,7 +12,7 @@ Routing by shape, fixed before launch (as geo4d_tpu/nn/attention.py routes):
     used XLA.
 
 Module and parameter names follow the original Geo4D PyTorch code, so its
-state dicts (and `models/convert.py::state_dict_from_jax`) load directly.
+state dicts (and the tests' weights bridge from the JAX package) load directly.
 """
 
 from __future__ import annotations
@@ -31,11 +31,16 @@ TEXT_CONTEXT_LEN = 77
 TEMPORAL_MAX_SEQ = 32
 
 
-def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False) -> torch.Tensor:
     """Plain multi-head attention over (B, N, H, D): f32 logits and softmax,
-    weights cast to v's dtype before the weighted sum, output in v's dtype."""
+    weights cast to v's dtype before the weighted sum, output in v's dtype.
+    `causal` masks keys after the query (logits set to the float32 minimum)."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
     return out.to(v.dtype)

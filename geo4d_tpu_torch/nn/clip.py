@@ -1,10 +1,10 @@
-"""OpenCLIP ViT-H-14 vision tower and its preprocessing, port of
-geo4d_tpu/nn/clip.py (the text tower is not on the diffusion stage: the
-pipeline takes the text context as input).
+"""OpenCLIP ViT-H-14 text and vision towers and the vision preprocessing,
+port of geo4d_tpu/nn/clip.py.
 
-`CLIPVisionEncoder` returns the full (B, 257, 1280) token sequence after the
-transformer: no ln_post, projection or pooling. Parameter names follow
-OpenCLIP's `visual.*` state dict.
+`CLIPTextEncoder` turns 77 token ids into the (B, 77, 1024) text context;
+the pipeline computes it once per prompt. `CLIPVisionEncoder` returns the
+full (B, 257, 1280) token sequence after the transformer: no ln_post,
+projection or pooling. Parameter names follow OpenCLIP's state dicts.
 
 `clip_preprocess` resizes to 224 x 224 with the resampling jax.image.resize
 does for method "cubic": a Keys cubic kernel (a = -0.5) that is widened by
@@ -83,14 +83,14 @@ class MultiheadSelfAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim, dtype=dtype)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         b, n, d = x.shape
         q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
 
         def split(t):
             return t.reshape(b, n, self.heads, d // self.heads)
 
-        out = dot_product_attention(split(q), split(k), split(v))
+        out = dot_product_attention(split(q), split(k), split(v), causal=causal)
         return self.out_proj(out.reshape(b, n, d))
 
 
@@ -105,8 +105,8 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = nn.ModuleDict({"c_fc": nn.Linear(dim, hidden, dtype=dtype),
                                   "c_proj": nn.Linear(hidden, dim, dtype=dtype)})
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x).to(self.dtype))
+    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x).to(self.dtype), causal=causal)
         h = F.gelu(self.mlp["c_fc"](self.ln_2(x).to(self.dtype)))
         return x + self.mlp["c_proj"](h)
 
@@ -116,6 +116,34 @@ class _Transformer(nn.Module):
         super().__init__()
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, dtype=dtype) for _ in range(layers))
+
+
+class CLIPTextEncoder(nn.Module):
+    """Causal text transformer -> (B, 77, width) float32 context: the
+    penultimate layer's output (23 of 24 blocks; only those are built) and
+    ln_final. Token and positional embeddings are float32, cast to the
+    compute dtype at use. Parameter names follow OpenCLIP's text tower.
+
+    The attention (77 tokens, 64 per head) is plain PyTorch: it is outside
+    kernel K2's gate, and the JAX package ran it through XLA too."""
+
+    def __init__(self, vocab_size: int = 49408, width: int = 1024, heads: int = 16,
+                 layers: int = 24, context_length: int = 77, penultimate: bool = True,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.context_length = context_length
+        self.token_embedding = nn.Embedding(vocab_size, width, dtype=torch.float32)
+        self.positional_embedding = nn.Parameter(torch.randn(context_length, width) * 0.01)
+        self.transformer = _Transformer(width, heads, layers - 1 if penultimate else layers, dtype)
+        self.ln_final = LayerNorm32(width)
+
+    def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
+        x = self.token_embedding(token_ids).to(self.dtype) \
+            + self.positional_embedding.to(self.dtype)[None]
+        for block in self.transformer.resblocks:
+            x = block(x, causal=True)
+        return self.ln_final(x)
 
 
 class _VisionTower(nn.Module):

@@ -1,17 +1,16 @@
-"""Diffusion stage of the video -> 4D pipeline: sliding 16-frame windows,
-conditioned DDIM sampling, the 4-head geometry decode, masking,
-denormalisation and Plücker cameras. Port of WindowPredictor in
-geo4d_tpu/pipeline/inference.py (`reconstruct` and the group aligner are
-not ported yet).
+"""End-to-end video -> 4D pipeline, port of geo4d_tpu/pipeline/inference.py:
+sliding 16-frame windows, conditioned DDIM sampling, the 4-head geometry
+decode, masking, denormalisation and Plücker cameras (WindowPredictor), then
+group alignment (`align_predictions`); `reconstruct` runs both.
 
 `predict_video` runs the CLIP tower and the VAE encoder once per unique
 frame and gathers the results into windows; the resampler runs per window
-because its query bank depends on the frame's position in the window.
+because its query bank depends on the frame's position in the window. Its
+outputs stay on the device into the aligner.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -20,6 +19,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from geo4d_tpu_torch.alignment.init import init_from_group
+from geo4d_tpu_torch.alignment.optimizer import AlignerConfig, GroupAligner
+from geo4d_tpu_torch.core.timing import stage
 from geo4d_tpu_torch.geometry.normalize import (
     denormalize_inverse_depth,
     denormalize_pointcloud_bbox2,
@@ -52,27 +54,6 @@ class InferenceConfig:
     sample_posterior: bool = True  # False: VAE posterior mode (deterministic)
 
 
-class StageTimer:
-    """Wall time per named stage, synchronising the device around each one.
-    Pass it as `timer=` to the predictor; times accumulate in `seconds`."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.seconds: Dict[str, float] = {}
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
-
-
 def sliding_windows(n_frames: int, window: int = 16, stride: int = 4) -> np.ndarray:
     """(G, window) frame indices: starts every `stride` frames plus a forced
     tail window covering the last `window` frames."""
@@ -82,10 +63,6 @@ def sliding_windows(n_frames: int, window: int = 16, stride: int = 4) -> np.ndar
     if starts[-1] != n_frames - window:
         starts.append(n_frames - window)
     return np.stack([np.arange(s, s + window) for s in starts])
-
-
-def _stage(timer, name):
-    return timer(name) if timer is not None else contextlib.nullcontext()
 
 
 def _to_unit_range(frames: torch.Tensor) -> torch.Tensor:
@@ -113,9 +90,9 @@ class WindowPredictor:
             uncond_img_context=uncond[1], num_steps=cfg.ddim_steps,
             timestep_spacing=cfg.timestep_spacing, eta=cfg.ddim_eta, cfg_scale=cfg.cfg_scale,
             cfg_img=cfg.cfg_img, guidance_rescale=cfg.guidance_rescale, x_T=x_T, timer=timer)
-        with _stage(timer, "decode"):
+        with stage(timer, "decode"):
             dec = self.model.decode_geometry(samples)
-        with _stage(timer, "postprocess"):
+        with stage(timer, "postprocess"):
             return self._postprocess(dec)
 
     def _uncond(self, text_ctx, uncond_text_ctx, img_ctx, g, t, frame_shape):
@@ -179,7 +156,7 @@ class WindowPredictor:
             frames = self._pad(_to_unit_range(torch.as_tensor(
                 frames_windows[start:start + n], device=dev)), bs - n)
             g, t = frames.shape[:2]
-            with _stage(timer, "conditioning"):
+            with stage(timer, "conditioning"):
                 img_ctx = self.model.embed_frames(frames)
                 ctx = torch.cat([text.expand(g, -1, -1), img_ctx], dim=1)
                 enc_gen = gen if self.cfg.sample_posterior else None
@@ -207,9 +184,9 @@ class WindowPredictor:
         uncond_text = text if uncond_text_ctx is None else torch.as_tensor(
             uncond_text_ctx, dtype=torch.float32, device=dev)
         video = _to_unit_range(torch.as_tensor(frames, device=dev))
-        with _stage(timer, "clip"):
+        with stage(timer, "clip"):
             tokens = self.model.clip_tokens_chunked(video)               # (N, 257, width)
-        with _stage(timer, "vae_encode"):
+        with stage(timer, "vae_encode"):
             enc_gen = gen if self.cfg.sample_posterior else None
             z_frames = self.model.encode_frames_chunked(video, enc_gen)  # (N, h, w, 4)
         gidx_all = torch.as_tensor(np.asarray(groups), dtype=torch.long, device=dev)
@@ -217,7 +194,7 @@ class WindowPredictor:
         for start, n, bs in self._chunks(gidx_all.shape[0]):
             gidx = self._pad(gidx_all[start:start + n], bs - n)
             g, t = gidx.shape
-            with _stage(timer, "resampler"):
+            with stage(timer, "resampler"):
                 img_ctx = self.model.resample_tokens(tokens[gidx])      # (G, T*16, ctx)
                 ctx = torch.cat([text.expand(g, -1, -1), img_ctx], dim=1)
                 uncond = self._uncond(text, uncond_text, img_ctx, g, t, video.shape[1:])
@@ -228,3 +205,64 @@ class WindowPredictor:
         if return_device:
             return merged
         return {k: v.cpu().numpy() for k, v in merged.items()}
+
+
+def align_predictions(groups: np.ndarray, preds: Dict[str, object], imshape,
+                      aligner_config: AlignerConfig = AlignerConfig(),
+                      intrinsics: Optional[np.ndarray] = None, verbose: bool = False,
+                      timer=None, device=None) -> GroupAligner:
+    """Group alignment of window predictions (the `predict_*` dict: pts3d,
+    conf, inv_depth, traj; tensors or numpy) into one scene: build the
+    aligner, preset known focals, initialise, run both phases. Runs on the
+    predictions' device unless `device` is given."""
+    aligner = GroupAligner(groups, preds["pts3d"], preds["conf"], imshape,
+                           invdepth=preds["inv_depth"], trajs=preds["traj"],
+                           config=aligner_config, device=device)
+    if intrinsics is not None:
+        aligner.preset_focal([(K[0, 0] + K[1, 1]) / 2 for K in intrinsics])
+    init_from_group(aligner, preds["pts3d"], preds["conf"], verbose=verbose, timer=timer)
+    aligner.run(verbose=verbose, timer=timer)
+    return aligner
+
+
+def reconstruct(model: GeoDiffusion, frames: np.ndarray, text_ctx: np.ndarray, fps: int = 24,
+                inference_config: InferenceConfig = InferenceConfig(),
+                aligner_config: AlignerConfig = AlignerConfig(), seed: int = 123,
+                intrinsics: Optional[np.ndarray] = None, verbose: bool = False,
+                uncond_text_ctx: Optional[np.ndarray] = None, timer=None, device=None):
+    """Full pipeline: windows -> diffusion -> group alignment, on the
+    model's device. frames (T, H, W, 3): uint8 0..255 or float [-1, 1];
+    text_ctx (1, 77, ctx) the precomputed text context.
+
+    The JAX package's signature without `params` and `mesh`: the module
+    carries its weights and runs on one device. Returns (scene aligner, raw
+    window predictions as device tensors, timing dict with diffusion_s,
+    alignment_s, frames and sec_per_frame)."""
+    t_total, h, w = frames.shape[:3]
+    groups = sliding_windows(t_total, inference_config.window, inference_config.stride)
+    predictor = WindowPredictor(model, inference_config, device=device)
+    dev = predictor.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    preds = predictor.predict_video(frames, groups, text_ctx, fps, seed,
+                                    uncond_text_ctx=uncond_text_ctx, return_device=True,
+                                    timer=timer)
+    sync()
+    t_diffusion = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aligner = align_predictions(groups, preds, (h, w), aligner_config, intrinsics,
+                                verbose=verbose, timer=timer)
+    sync()
+    t_align = time.perf_counter() - t0
+    timing = {
+        "diffusion_s": t_diffusion,
+        "alignment_s": t_align,
+        "frames": float(t_total),
+        "sec_per_frame": (t_diffusion + t_align) / t_total,
+    }
+    return aligner, preds, timing

@@ -6,13 +6,32 @@ JAX package and the port; outputs come back as numpy arrays.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from collections.abc import Mapping
+from typing import Any, Dict, List, Tuple
 
 import jax
 import numpy as np
 import torch
 
-from geo4d_tpu.models.convert import inverse_transform, unet_torch_key
+from geo4d_tpu.models.convert import (
+    clip_text_torch_key,
+    clip_vision_torch_key,
+    inverse_transform,
+    resampler_torch_key,
+    unet_torch_key,
+    vae_torch_key,
+)
+from geo4d_tpu_torch.models.convert import TOWER_MODULES
+
+# weights bridge: the JAX package's key rules name each leaf's PyTorch key
+KEY_FNS = {
+    "unet": unet_torch_key,
+    "vae": vae_torch_key,
+    "pointmap_vae": vae_torch_key,
+    "clip_text": clip_text_torch_key,
+    "clip_img": clip_vision_torch_key,
+    "resampler": resampler_torch_key,
+}
 
 
 def randomize(params: Any, seed: int) -> Any:
@@ -48,6 +67,39 @@ def jax_apply(module, params, *args, method=None, **static) -> np.ndarray:
     return jax.tree_util.tree_map(np.asarray, out)
 
 
+def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> List[Tuple[List[str], Any]]:
+    if isinstance(tree, Mapping):
+        out = []
+        for k, v in tree.items():
+            out.extend(_leaves(v, path + (str(k),)))
+        return out
+    return [(list(path), tree)]
+
+
+def state_dict_from_jax(params: Any, tower: str) -> Dict[str, torch.Tensor]:
+    """One tower's JAX param tree ({'params': ...}) -> the state dict of the
+    port's matching module, each array in PyTorch's layout. Raises on a leaf
+    with no mapping rule."""
+    key_fn = KEY_FNS[tower]
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(params):
+        key = key_fn(path)
+        if key is None:
+            raise KeyError(f"{tower}: no torch key for {'/'.join(path)}")
+        arr = inverse_transform(path[-1], np.asarray(leaf, dtype=np.float32))
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def load_from_jax(model: torch.nn.Module, params: Dict[str, Any]) -> None:
+    """Load every tower present in a JAX `init_params`-style dict into a
+    port GeoDiffusion, strictly."""
+    for tower, attr in TOWER_MODULES.items():
+        module = getattr(model, attr)
+        if tower in params and module is not None:
+            module.load_state_dict(state_dict_from_jax(params[tower], tower), strict=True)
+
+
 def sub_state_dict(params: Any, jax_prefix: List[str], torch_prefix: str) -> Dict[str, torch.Tensor]:
     """State dict of a UNet submodule: its JAX paths are mapped as if they
     sat under `jax_prefix` in the UNet, and `torch_prefix` is stripped."""
@@ -81,6 +133,37 @@ def assert_close(got: torch.Tensor | np.ndarray, want: np.ndarray, atol: float,
     worst = float((err - bound).max()) if err.size else 0.0
     assert worst <= 0.0, (
         f"{what}: max abs err {float(err.max()):.3e} exceeds atol {atol:g} + rtol {rtol:g}")
+
+
+def aligner_state_from_jax(jax_aligner) -> Dict[str, Any]:
+    """A JAX GroupAligner's state as numpy, cut to its real G windows and N
+    frames (the JAX aligner pads both for compile reuse): every parameter,
+    the two phase-2 window gates and the focal freeze."""
+    G, N = jax_aligner.G, jax_aligner.N
+    rows = {"log_depth": N, "poses": N, "pw_poses": G, "traj_align": G, "s_depth": G,
+            "t_depth": G, "focal": 1 if jax_aligner.cfg.shared_focal else N}
+    state = {k: np.asarray(jax_aligner.params[k])[:n] for k, n in rows.items()}
+    state["valid_depth_group"] = np.asarray(jax_aligner.valid_depth_group)[:G]
+    state["valid_traj_group"] = np.asarray(jax_aligner.valid_traj_group)[:G]
+    state["focal_frozen"] = bool(jax_aligner.focal_frozen)
+    return state
+
+
+def load_aligner_state(port_aligner, state: Dict[str, Any]) -> None:
+    """Write `aligner_state_from_jax` output into a port GroupAligner."""
+    with torch.no_grad():
+        for k, p in port_aligner.params.items():
+            p.copy_(torch.from_numpy(np.asarray(state[k], np.float32)))
+    dev = port_aligner.device
+    port_aligner.valid_depth_group = torch.as_tensor(state["valid_depth_group"], device=dev).float()
+    port_aligner.valid_traj_group = torch.as_tensor(state["valid_traj_group"], device=dev).float()
+    port_aligner.params["focal"].requires_grad_(not state["focal_frozen"])
+
+
+def rel_err(got, want) -> float:
+    """Relative L2 error ||got - want|| / ||want||."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
 
 
 def cuda_or_skip() -> torch.device:

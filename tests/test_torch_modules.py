@@ -21,12 +21,12 @@ from geo4d_tpu.models.presets import tiny as jax_tiny
 from geo4d_tpu.models.unet3d import ResBlock as JaxResBlock
 from geo4d_tpu.nn import attention as jattn
 from geo4d_tpu.nn.basics import GroupNorm32 as JaxGroupNorm32
-from geo4d_tpu_torch.models.convert import state_dict_from_jax
 from geo4d_tpu_torch.models.presets import tiny
 from geo4d_tpu_torch.models.unet3d import ResBlock
 from geo4d_tpu_torch.nn.attention import CrossAttention, SpatialTransformer, TemporalTransformer
 from geo4d_tpu_torch.nn.basics import GroupNorm32
-from _torch_parity import assert_close, jax_apply, jax_init, sub_state_dict, to_torch
+from _torch_parity import (assert_close, jax_apply, jax_init, state_dict_from_jax,
+                           sub_state_dict, to_torch)
 
 torch.set_num_threads(1)
 

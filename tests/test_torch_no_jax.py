@@ -1,8 +1,8 @@
-"""The PyTorch port never imports JAX: a fresh interpreter imports the
-port's runtime path (pipeline, presets), runs a tiny UNet3D forward and
-finds neither JAX nor any module of the JAX package loaded; it then imports
-every module of the port (the weights bridge shares the numpy-only
-geo4d_tpu.models.convert) and still finds no `jax` or `flax`."""
+"""The PyTorch port imports nothing of JAX, Flax, Optax, OpenCV or the JAX
+package `geo4d_tpu`: a fresh interpreter runs the runtime path, `reconstruct`
+on the tiny preset from frames to an aligned scene, then the CLI from an
+image directory to a results directory, and checks what is loaded; it then
+imports every module of the port and checks again."""
 
 import os
 import subprocess
@@ -11,25 +11,41 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import pkgutil, importlib, sys
+import os, pkgutil, importlib, sys, tempfile
+import numpy as np
 import torch
+from PIL import Image
 
-def loaded(*roots):
-    return sorted(m for m in sys.modules if m.split(".")[0] in roots)
+FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "cv2", "geo4d_tpu")
 
-import geo4d_tpu_torch.pipeline.inference
-from geo4d_tpu_torch.models.presets import tiny
-torch.manual_seed(0)
-unet = tiny(temporal_length=4).unet
-with torch.no_grad():
-    out = unet(torch.randn(1, 4, 4, 8, 20), torch.tensor([500]),
-               torch.randn(1, 77 + 4 * 16, 64), torch.tensor([24]))
-assert out.shape == (1, 4, 4, 8, 16) and torch.isfinite(out).all()
-assert not loaded("jax", "jaxlib", "flax", "geo4d_tpu"), loaded("jax", "flax", "geo4d_tpu")
+def foreign():
+    return sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN_ROOTS)
+
 import geo4d_tpu_torch
+from geo4d_tpu_torch.alignment.optimizer import AlignerConfig
+from geo4d_tpu_torch.cli import infer
+from geo4d_tpu_torch.models.presets import init_random_, tiny
+from geo4d_tpu_torch.pipeline.inference import InferenceConfig, reconstruct
+
+model = init_random_(tiny(temporal_length=4, device="meta"), "cpu", seed=0).eval()
+frames = np.random.default_rng(0).integers(0, 256, size=(6, 32, 32, 3), dtype=np.uint8)
+scene, preds, timing = reconstruct(
+    model, frames, np.zeros((1, 77, 64), np.float32),
+    inference_config=InferenceConfig(window=4, stride=2, ddim_steps=1),
+    aligner_config=AlignerConfig(n_iter=4, depth_traj_start_iter=2))
+assert scene.get_depthmaps().shape == (6, 32, 32) and np.isfinite(scene.get_depthmaps()).all()
+with tempfile.TemporaryDirectory() as tmp:
+    os.makedirs(os.path.join(tmp, "clip"))
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(os.path.join(tmp, "clip", f"{i:03d}.png"))
+    infer.main(["--video_path", os.path.join(tmp, "clip"), "--savedir", os.path.join(tmp, "out"),
+                "--tiny", "--device", "cpu", "--height", "32", "--width", "32",
+                "--video_length", "4", "--stride", "2", "--ddim_steps", "1", "--n_iter", "4"])
+    assert os.path.exists(os.path.join(tmp, "out", "clip", "clip", "pred_traj.txt"))
+assert not foreign(), foreign()
 for mod in pkgutil.walk_packages(geo4d_tpu_torch.__path__, "geo4d_tpu_torch."):
     importlib.import_module(mod.name)
-assert not loaded("jax", "jaxlib", "flax"), loaded("jax", "jaxlib", "flax")
+assert not foreign(), foreign()
 print("ok")
 """
 

@@ -30,14 +30,13 @@ from geo4d_tpu.nn.clip import clip_preprocess as jax_clip_preprocess
 from geo4d_tpu.pipeline.inference import (InferenceConfig as JaxInferenceConfig,
                                           WindowPredictor as JaxWindowPredictor)
 from geo4d_tpu.sampling.ddim import DDIMTables as JaxDDIMTables, ddim_sample as jax_ddim_sample
-from geo4d_tpu_torch.models.convert import load_from_jax
 from geo4d_tpu_torch.models.presets import tiny
 from geo4d_tpu_torch.nn.clip import clip_preprocess
 from geo4d_tpu_torch.core.schedules import DiffusionSchedule as PortDiffusionSchedule
 from geo4d_tpu_torch.pipeline.inference import InferenceConfig, WindowPredictor
 from geo4d_tpu_torch.pipeline.inference import sliding_windows as port_sliding_windows
 from geo4d_tpu_torch.sampling.ddim import DDIMTables, ddim_sample
-from _torch_parity import assert_close, randomize, to_torch
+from _torch_parity import assert_close, load_from_jax, randomize, to_torch
 
 torch.set_num_threads(1)
 

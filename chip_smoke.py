@@ -12,8 +12,10 @@ the final `ok` line):
    build/geo4d_tpu_torch/ and loads the library.
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, in bf16, at the shapes the main path gives it, and against a
-   second launch of itself (bit for bit); prints max abs and rel error and
-   the median time of both (CUDA events, after warm-up).
+   second launch of itself (bit for bit); prints max abs and rel error, the
+   median device time of both (CUDA events, after warm-up, host work hidden
+   behind a device sleep; `median_ms`), the time of one call as the host
+   issues it (`call_ms`), the bound and the library call's device time.
 4. slice: the shipped model at full width (random-normal weights, seed 0)
    computes its text context with its CLIP text tower and the port's
    tokenizer, then runs `reconstruct` over a seeded 20-frame 256x576 video
@@ -22,18 +24,31 @@ the final `ok` line):
    checks output shapes and finiteness, the results files, that every kernel
    launched during that run and that no plain version ran on a CUDA tensor;
    prints PnP failures, per-stage wall times and peak memory.
-5. reference: the tiny preset in bf16 on the card (kernels) against the
+5. shapes: every (kernel, shape) that the slice's reconstruct launched,
+   checked as in phase 3 and timed beside its bound and its library call
+   (one PyTorch call computing the same function, a yardstick the port
+   never calls); prints launches x ms per shape and each kernel's totals.
+6. reference: the tiny preset in bf16 on the card (kernels) against the
    same weights in float32 on the CPU (plain versions), on a small input.
-6. align_reference: the group aligner on an analytic 20-frame 64x144 scene
+7. align_reference: the group aligner on an analytic 20-frame 64x144 scene
    (windows of 16, stride 4), float32 on the card against float32 on the
    CPU, and both against the scene's ground truth.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --shapes-to FILE      # also save phase 5's shapes
+    python3 chip_smoke.py --shapes-only FILE    # phases 1-2 and 5 only
+
+`--shapes-only` times the saved (kernel, shape, launches) list through the
+`geo4d_tpu_torch` beside this script; a copy of the script in an unpacked
+older checkout times that checkout's kernels by the same method, so two
+versions can be compared in one call.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -44,6 +59,7 @@ import time
 
 import numpy as np
 import torch
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 # (name, source, TPU kernel it replaces)
 KERNELS = {
@@ -68,12 +84,24 @@ FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "cv2", "geo4d_tpu")
 PROMPT = "Output a video that assigns each 3D location in the world a consistent color."
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+# about 1 ms of device time on an H100: longer than the host takes to
+# enqueue any function timed here
+SLEEP_CYCLES = 2_000_000
+
+
+def median_ms(fn, reps: int = 20, warmup: int = 3, hide_host: bool = True) -> float:
+    """Median of `reps` times of one call of `fn` between two CUDA events.
+    With `hide_host` the device first sleeps, so the host has enqueued the
+    events and the whole call before the device reaches them: the time is
+    the device's own (kernels and the gaps between them). Without it the
+    device waits on the host's work inside the call."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -94,59 +122,173 @@ def compare(name, got, want):
     return max_abs, max_rel
 
 
-def kernel_phase(dev):
-    from geo4d_tpu_torch.nn.basics import num_groups_for
-    from geo4d_tpu_torch.ops import flash_attention as fa
-    from geo4d_tpu_torch.ops import group_norm as gn
-    from geo4d_tpu_torch.ops import temporal_attention as ta
+# published peaks of one H100 SXM (dense) and its memory rate, for the bounds
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
-    g = torch.Generator(device=dev).manual_seed(0)
+
+def bound_ms(name, key):
+    """Least time the card could take for one call at shape `key`: the larger
+    of the bytes the function must move (each input read once, each output
+    written once) over the memory rate and its operations over the peak rate
+    of their type. Returns (ms, "bytes" or "operations")."""
+    if name == "group_norm":
+        n, s, c, silu = key
+        elems = n * s * c
+        nbytes, ops, peak = 4 * elems + 8 * c, elems * (9 if silu else 5), PEAK_F32
+    elif name == "flash_attention":
+        b, nq, nk, h = key
+        nbytes = 2 * 64 * h * b * (2 * nq + 2 * nk)
+        ops, peak = 4 * b * h * nq * nk * 64, PEAK_BF16
+    else:
+        p, n, c, heads = key
+        nbytes, ops, peak = 2 * 4 * p * n * c, 4 * p * n * n * c, PEAK_BF16
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def make_args(name, key, g, dev):
+    """Seeded bf16 inputs of one (kernel, shape key) as the wrapper takes them."""
+    from geo4d_tpu_torch.nn.basics import num_groups_for
 
     def bf16(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(torch.bfloat16)
 
-    cases = []
-    for shape in [(16, 2304, 320), (1, 36864, 320), (1, 36864, 960), (48, 147456, 128)]:
-        for silu in (False, True):
-            x = bf16(*shape, scale=2.0, shift=0.5)
-            gamma = torch.randn(shape[-1], generator=g, device=dev)
-            beta = torch.randn(shape[-1], generator=g, device=dev)
-            args = (x, gamma, beta, num_groups_for(shape[-1]), 1e-5, silu)
-            cases.append(("group_norm", f"{shape} silu={silu}",
-                          lambda a=args: gn.group_norm(*a), lambda a=args: gn.group_norm_plain(*a)))
-    for b, nq, nk, h in [(16, 2304, 2304, 5), (16, 576, 576, 10), (16, 2304, 16, 5),
-                         (16, 576, 16, 10)]:
-        qkv = (bf16(b, nq, h, 64), bf16(b, nk, h, 64), bf16(b, nk, h, 64))
-        cases.append(("flash_attention", f"B={b} Nq={nq} Nk={nk} H={h} D=64",
-                      lambda a=qkv: fa.flash_attention(*a),
-                      lambda a=qkv: fa.flash_attention_plain(*a)))
-    for p, c, heads in [(2304, 320, 5), (2304, 512, 8), (144, 1280, 20)]:
-        qkv = (bf16(p, 16, c), bf16(p, 16, c), bf16(p, 16, c))
-        cases.append(("temporal_attention", f"P={p} N=16 C={c} heads={heads}",
-                      lambda a=qkv, n=heads: ta.temporal_attention(*a, n),
-                      lambda a=qkv, n=heads: ta.temporal_attention_plain(*a, n)))
+    if name == "group_norm":
+        n, s, c, silu = key
+        gamma = torch.randn(c, generator=g, device=dev)
+        beta = torch.randn(c, generator=g, device=dev)
+        return (bf16(n, s, c, scale=2.0, shift=0.5), gamma, beta, num_groups_for(c), 1e-5, silu)
+    if name == "flash_attention":
+        b, nq, nk, h = key
+        return (bf16(b, nq, h, 64), bf16(b, nk, h, 64), bf16(b, nk, h, 64))
+    p, n, c, heads = key
+    return (bf16(p, n, c), bf16(p, n, c), bf16(p, n, c), heads)
 
-    results = {}
-    for name, label, kernel, plain in cases:
-        got = kernel()
-        repeat = torch.equal(got, kernel())     # a second launch on the same inputs
-        want = plain()
-        torch.cuda.synchronize()
-        max_abs, max_rel = compare(f"{name} {label}", got, want)
-        if not repeat:
-            raise AssertionError(f"{name} {label}: two launches on the same input differ")
-        del got, want
+
+def calls(name, args):
+    """(kernel, plain version, library call or None) on the same inputs. The
+    library call is one PyTorch call computing the same function, timed here
+    as a yardstick and used nowhere in the port: F.group_norm (through
+    PyTorch's copy to NCHW; no single call adds the SiLU), or
+    scaled_dot_product_attention (run under the flash backend)."""
+    import torch.nn.functional as F
+    from geo4d_tpu_torch.ops import flash_attention as fa
+    from geo4d_tpu_torch.ops import group_norm as gn
+    from geo4d_tpu_torch.ops import temporal_attention as ta
+
+    if name == "group_norm":
+        x, gamma, beta, groups, eps, silu = args
+        lib = None
+        if not silu:
+            g16, b16 = gamma.to(x.dtype), beta.to(x.dtype)
+            lib = lambda: F.group_norm(x.permute(0, 2, 1), groups, g16, b16, eps)  # noqa: E731
+        return lambda: gn.group_norm(*args), lambda: gn.group_norm_plain(*args), lib
+    if name == "flash_attention":
+        heads_first = [t.transpose(1, 2) for t in args]
+        return (lambda: fa.flash_attention(*args), lambda: fa.flash_attention_plain(*args),
+                lambda: F.scaled_dot_product_attention(*heads_first))
+    q, k, v, heads = args
+    p, n, c = q.shape
+    heads_first = [t.view(p, n, heads, c // heads).transpose(1, 2) for t in (q, k, v)]
+    return (lambda: ta.temporal_attention(*args), lambda: ta.temporal_attention_plain(*args),
+            lambda: F.scaled_dot_product_attention(*heads_first))
+
+
+def label(name, key):
+    if name == "group_norm":
+        return f"{key[:3]} silu={key[3]}"
+    if name == "flash_attention":
+        return "B={} Nq={} Nk={} H={} D=64".format(*key)
+    return "P={} N={} C={} heads={}".format(*key)
+
+
+def check_case(name, key, g, dev, time_plain):
+    """The kernel against its plain version and a second launch of itself at
+    one shape, then its time, its bound and its library call's time."""
+    args = make_args(name, key, g, dev)
+    kernel, plain, lib = calls(name, args)
+    got = kernel()
+    repeat = torch.equal(got, kernel())     # a second launch on the same inputs
+    want = plain()
+    torch.cuda.synchronize()
+    max_abs, max_rel = compare(f"{name} {label(name, key)}", got, want)
+    if not repeat:
+        raise AssertionError(f"{name} {label(name, key)}: two launches on the same input differ")
+    del got, want
+    row = {"max_abs_err": max_abs, "max_rel_err": max_rel, "bound": bound_ms(name, key)}
+    if time_plain:
         ms_plain1 = median_ms(plain)
-        ms = median_ms(kernel)
-        ms_plain2 = median_ms(plain)
-        plain_ms = min(ms_plain1, ms_plain2)
-        print(f"kernel {name:18s} {label:40s} max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} repeat_equal={repeat}", flush=True)
-        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                                      "shape": label})
-        r["max_abs_err"] = max(r["max_abs_err"], max_abs)
-        torch.cuda.empty_cache()
+        row["ms"] = median_ms(kernel)
+        row["plain_ms"] = min(ms_plain1, median_ms(plain))
+    else:
+        row["ms"], row["plain_ms"] = median_ms(kernel), None
+    row["call_ms"] = median_ms(kernel, hide_host=False)
+    row["library_ms"] = median_ms(lib) if lib is not None else None
+    del args, kernel, plain, lib
+    torch.cuda.empty_cache()
+    return row
+
+
+def fmt(v):
+    return "null" if v is None else f"{v:.4f}"
+
+
+def kernel_phase(dev):
+    """Each kernel against its plain version at representative main-path
+    shapes; the first case of each kernel is the one the summary line reports."""
+    cases = [("group_norm", (*shape, silu)) for shape in
+             [(16, 2304, 320), (1, 36864, 320), (1, 36864, 960), (48, 147456, 128)]
+             for silu in (False, True)]
+    cases += [("flash_attention", key) for key in
+              [(16, 2304, 2304, 5), (16, 576, 576, 10), (16, 2304, 16, 5), (16, 576, 16, 10)]]
+    cases += [("temporal_attention", key) for key in
+              [(2304, 16, 320, 5), (2304, 16, 512, 8), (144, 16, 1280, 20)]]
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for name, key in cases:
+        row = check_case(name, key, g, dev, time_plain=True)
+        b, kind = row["bound"]
+        print(f"kernel {name:18s} {label(name, key):40s} max_abs={row['max_abs_err']:.3e} "
+              f"max_rel={row['max_rel_err']:.3e} ms={row['ms']:.4f} call_ms={row['call_ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} bound_ms={b:.4f} ({kind}) "
+              f"library_ms={fmt(row['library_ms'])} repeat_equal=True", flush=True)
+        r = results.setdefault(name, dict(row, shape=label(name, key)))
+        r["max_abs_err"] = max(r["max_abs_err"], row["max_abs_err"])
     return results
+
+
+def shapes_phase(dev, by_shape):
+    """Every (kernel, shape) the slice's reconstruct launched: checked against
+    the plain version and a second launch, timed beside its bound and its
+    library call. Returns each kernel's main-path totals (ms summed over the
+    launches of one reconstruct)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    totals = {}
+    for name, counts in by_shape.items():
+        t = totals.setdefault(name, {"total_ms": 0.0, "total_call_ms": 0.0, "total_bound_ms": 0.0,
+                                     "total_library_ms": 0.0, "total_ms_with_library": 0.0})
+        for key, n in sorted(counts.items(), key=lambda kv: -kv[1]):
+            row = check_case(name, key, g, dev, time_plain=False)
+            b, kind = row["bound"]
+            lib = row["library_ms"]
+            t["total_ms"] += n * row["ms"]
+            t["total_call_ms"] += n * row["call_ms"]
+            t["total_bound_ms"] += n * b
+            if lib is not None:
+                t["total_library_ms"] += n * lib
+                t["total_ms_with_library"] += n * row["ms"]
+            print(f"shape {name:18s} {label(name, key):40s} launches={n} ms={row['ms']:.4f} "
+                  f"call_ms={row['call_ms']:.4f} "
+                  f"bound_ms={b:.4f} ({kind}) share={b / row['ms']:.3f} "
+                  f"library_ms={fmt(lib)} launches_x_ms={n * row['ms']:.3f} "
+                  f"max_abs={row['max_abs_err']:.3e}", flush=True)
+        print(f"shapes {name}: launches {sum(counts.values())}, sum launches x ms "
+              f"{t['total_ms']:.3f} (x call_ms {t['total_call_ms']:.3f}), x bound_ms {t['total_bound_ms']:.3f}, x library_ms "
+              f"{t['total_library_ms']:.3f} (kernel over the same shapes "
+              f"{t['total_ms_with_library']:.3f})", flush=True)
+    return totals
 
 
 def slice_phase(dev):
@@ -200,6 +342,7 @@ def slice_phase(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: s.launches for k, s in stats.items()}
+    by_shape = {k: dict(s.by_shape) for k, s in stats.items()}
     plain_on_cuda = {k: s.plain_on_cuda for k, s in stats.items()}
     peak = torch.cuda.max_memory_allocated(dev)
 
@@ -257,7 +400,7 @@ def slice_phase(dev):
     sums = {k: float(v.double().sum()) for k, v in out.items()}
     print(f"slice: prediction sums {json.dumps(sums)}; the warm-up's (same seed) "
           f"{'equal' if sums == warm_sums else json.dumps(warm_sums)}", flush=True)
-    return launches
+    return launches, by_shape
 
 
 def reference_phase(dev):
@@ -344,6 +487,10 @@ def align_reference_phase(dev):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of geo4d_tpu_torch on one GPU")
+    ap.add_argument("--shapes-to", help="write the slice's launches per (kernel, shape) here")
+    ap.add_argument("--shapes-only", help="time only the (kernel, shape) list in this file")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
@@ -365,9 +512,23 @@ def main() -> int:
     dispatch.kernels()
     print(f"build: {dispatch.library_path()} in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    with torch.no_grad():
+    if args.shapes_only:
+        with open(args.shapes_only) as f:
+            saved = json.load(f)
+        by_shape = {name: {tuple(key): n for key, n in rows} for name, rows in saved.items()}
+        with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            totals = shapes_phase(dev, by_shape)
+        print(json.dumps({"totals": totals}))
+        return 0
+    with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         results = kernel_phase(dev)
-    launches = slice_phase(dev)
+    launches, by_shape = slice_phase(dev)
+    if args.shapes_to:
+        with open(args.shapes_to, "w") as f:
+            json.dump({name: [[list(key), n] for key, n in rows.items()]
+                       for name, rows in by_shape.items()}, f)
+    with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        totals = shapes_phase(dev, by_shape)
     with torch.no_grad():
         reference_phase(dev)
     align_reference_phase(dev)
@@ -379,7 +540,11 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+         "shape": results[name]["shape"], "ms": results[name]["ms"],
+         "call_ms": results[name]["call_ms"],
+         "plain_ms": results[name]["plain_ms"], "bound_ms": results[name]["bound"][0],
+         "bound_by": results[name]["bound"][1], "library_ms": results[name]["library_ms"],
+         **totals[name]}
         for name, (src, tpu) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

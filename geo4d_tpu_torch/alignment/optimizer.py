@@ -93,6 +93,13 @@ def _lr_at(step: int, cfg: AlignerConfig) -> float:
     return cfg.lr + (cfg.lr_min - cfg.lr) * t
 
 
+def default_device() -> torch.device:
+    """The card, for inputs that name no device; raises where there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the aligner on the CPU")
+    return torch.device("cuda")
+
+
 class GroupAligner:
     """Optimizer over stacked window predictions.
 
@@ -102,7 +109,9 @@ class GroupAligner:
       invdepth (G, S, P)    diffusion inverse depth
       trajs    (G, S, 4, 4) diffusion cameras
       groups   (G, S) int   frame index of each window slot
-    Everything lives on `device` (default: the device of `pred_pts`)."""
+    Everything lives on `device`: by default the device of `pred_pts` when
+    it is a tensor, else the CUDA device (an error where there is none);
+    pass device="cpu" to run on the CPU."""
 
     def __init__(self, groups, pred_pts, weights, imshape: Tuple[int, int], invdepth=None,
                  trajs=None, config: AlignerConfig = AlignerConfig(), target_flows=None,
@@ -117,7 +126,7 @@ class GroupAligner:
         self.P = self.H * self.W
         self.N = int(self.groups.max()) + 1
         if device is None:
-            device = pred_pts.device if isinstance(pred_pts, torch.Tensor) else "cpu"
+            device = pred_pts.device if isinstance(pred_pts, torch.Tensor) else default_device()
         self.device = dev = torch.device(device)
 
         def f32(a):

@@ -4,21 +4,31 @@
 //
 // Replaces the TPU kernels of geo4d_tpu/ops/group_norm.py: `_gn_kernel`
 // (launched by `_gn_single`) and `_gn_stats_kernel` + `_gn_apply_kernel`
-// (launched by `_gn_tiled`). On Hopper one design covers both row regimes.
+// (launched by `_gn_tiled`).
 //
-// Bound: device-memory bandwidth. The op reads x twice and writes y once
-// (about 6 bytes per element in bf16) against a handful of flops per element.
-// What the design does about it:
-//   * x is cut into (n, S-tile) blocks so that even a per-clip norm with
-//     N = 1 (only G (n, group) pairs) spreads over every SM;
-//   * each thread owns 8 consecutive channels and moves them as one 16-byte
-//     load or store, neighbouring threads on neighbouring addresses;
-//   * pass 1 (gn_stats_kernel) writes per-(n, tile, group) f32 partial sums;
-//     pass 2 (gn_apply_kernel) folds the partials of its n into mean/rstd,
-//     then streams its tile once more applying the affine (+ silu).
-//   The tile count per n is capped so that the fold in pass 2 reads far fewer
-//   bytes than the tile it normalises.
+// Bound: device-memory bandwidth. The op must read x once and write y once
+// (4 bytes per element in bf16) against a handful of flops per element. Two
+// paths, chosen statically from (N, S, C) in ops/group_norm.py (`plan`):
+//   * resident (gn_resident_kernel): one launch, x read once. Each block
+//     (one per SM, launched cooperatively so that all are resident) copies
+//     its contiguous (n, rows) slice into shared memory (cp.async, every
+//     copy in flight at once) and sums it there,
+//     writes per-(n, tile, group) partial sums, meets the other blocks at a
+//     grid-wide barrier, folds the partials of its n in a fixed order and
+//     writes y from shared memory. It covers every tensor whose slices fit
+//     the 227 KB of shared memory a block may use: the UNet's per-frame and
+//     per-clip norms.
+//   * two-pass (gn_stats_kernel, then gn_apply_kernel): for the larger
+//     tensors (the VAE's full-resolution rows, the per-clip 960-channel
+//     norms). Pass 1 writes the partial sums of (n, S-tile) blocks, pass 2
+//     folds them and streams its tile once more, applying the affine.
+// In both, each thread owns 8 consecutive channels and moves them as one
+// 16-byte load or store, neighbouring threads on neighbouring addresses, and
+// x is cut into (n, S-tile) blocks so that a per-clip norm with N = 1 (only
+// G (n, group) pairs) spreads over every SM. Every sum is taken in a fixed
+// order (no atomics): a launch on the same input gives the same bits.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,6 +55,110 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return u;
 }
 
+__device__ __forceinline__ void accumulate8(const uint4& u, float* a1, float* a2) {
+  float f[8];
+  unpack8(u, f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a1[j] += f[j];
+    a2[j] += f[j] * f[j];
+  }
+}
+
+// Per-group sums of the block: thread (v, r) holds the sums of channels
+// v*8..v*8+7 over its rows; the R rows of threads are added in a fixed order
+// (not with atomics) in `red` (R * 2 * C floats), then channels per group.
+// Writes the G sums to out1[g], out2[g].
+__device__ void block_group_sums(const float* a1, const float* a2, float* red, int C, int G,
+                                 float* out1, float* out2) {
+  const int tid = threadIdx.x, V = C / 8, R = blockDim.x / V, v = tid % V, r = tid / V;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    red[r * 2 * C + v * 8 + j] = a1[j];
+    red[r * 2 * C + C + v * 8 + j] = a2[j];
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * C; i += blockDim.x) {
+    // row 0 takes the totals: column i is read and written by this thread only
+    float s = red[i];
+    for (int k = 1; k < R; ++k) s += red[k * 2 * C + i];
+    red[i] = s;
+  }
+  __syncthreads();
+  const int cg = C / G;
+  for (int g = tid; g < G; g += blockDim.x) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = g * cg; c < (g + 1) * cg; ++c) {
+      s1 += red[c];
+      s2 += red[C + c];
+    }
+    out1[g] = s1;
+    out2[g] = s2;
+  }
+}
+
+// Folds the T partial sums of image n into mean[G] | rstd[G] in `stat`.
+// Thread (g, k) = (tid % G, tid / G), k < K = blockDim.x / G, adds tiles
+// k, k + K, ... of group g (neighbouring threads read neighbouring groups:
+// coalesced), then thread g adds its K sums in order k = 0..K-1. `scratch`
+// holds 2 * K * G floats. Ends synchronised.
+__device__ void fold_stats(const float* part1, const float* part2, int n, int S, int C, int G,
+                           int T, float eps, float* scratch, float* stat) {
+  const int tid = threadIdx.x, K = blockDim.x / G;
+  if (tid < K * G) {
+    const int g = tid % G, k = tid / G;
+    const float* p1 = part1 + (size_t)n * T * G + g;
+    const float* p2 = part2 + (size_t)n * T * G + g;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll 4
+    for (int t = k; t < T; t += K) {
+      s1 += __ldcg(p1 + (size_t)t * G);  // L2: written by other blocks
+      s2 += __ldcg(p2 + (size_t)t * G);
+    }
+    scratch[k * G + g] = s1;
+    scratch[(K + k) * G + g] = s2;
+  }
+  __syncthreads();
+  if (tid < G) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int k = 0; k < K; ++k) {
+      s1 += scratch[k * G + tid];
+      s2 += scratch[(K + k) * G + tid];
+    }
+    const float inv_count = (float)(1.0 / ((double)S * (C / G)));
+    const float mean = s1 * inv_count;
+    const float var = fmaxf(s2 * inv_count - mean * mean, 0.f);
+    stat[tid] = mean;
+    stat[G + tid] = rsqrtf(var + eps);
+  }
+  __syncthreads();
+}
+
+// the per-channel affine of thread vector v
+__device__ __forceinline__ void affine8(const float* gamma, const float* beta, const float* stat,
+                                        int v, int C, int G, float* a, float* b) {
+  const int cg = C / G;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = v * 8 + j, g = c / cg;
+    const float rstd = stat[G + g];
+    a[j] = rstd * gamma[c];
+    b[j] = beta[c] - stat[g] * rstd * gamma[c];
+  }
+}
+
+__device__ __forceinline__ uint4 apply8(const uint4& u, const float* a, const float* b, int silu) {
+  float f[8];
+  unpack8(u, f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float t = f[j] * a[j] + b[j];
+    if (silu) t = t / (1.f + __expf(-t));
+    f[j] = t;
+  }
+  return pack8(f);
+}
+
 // grid (T, N); block V * R threads with V = C / 8 channel vectors and R rows
 // in flight. Dynamic shared memory: R * 2 * C floats (at most 32 KB, since
 // R * C = 8 * blockDim.x <= 4096).
@@ -53,8 +167,8 @@ __global__ void gn_stats_kernel(const __nv_bfloat16* __restrict__ x,
                                 float* __restrict__ part2, int S, int C, int G,
                                 int T, int rows_per_tile) {
   extern __shared__ float red[];  // per row of threads r: s1[C] | s2[C]
-  const int tile = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
-  const int V = C / 8, R = blockDim.x / V, v = tid % V, r = tid / V;
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int V = C / 8, R = blockDim.x / V, v = threadIdx.x % V, r = threadIdx.x / V;
 
   const int row0 = tile * rows_per_tile;
   const int row1 = min(S, row0 + rows_per_tile);
@@ -69,46 +183,14 @@ __global__ void gn_stats_kernel(const __nv_bfloat16* __restrict__ x,
                        : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      float f[8];
-      unpack8(u[k], f);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        a1[j] += f[j];
-        a2[j] += f[j] * f[j];
-      }
-    }
+    for (int k = 0; k < kUnroll; ++k) accumulate8(u[k], a1, a2);
   }
-  // the R rows of threads are summed in a fixed order (not with atomics),
-  // so a launch on the same input gives the same bits
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    red[r * 2 * C + v * 8 + j] = a1[j];
-    red[r * 2 * C + C + v * 8 + j] = a2[j];
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * C; i += blockDim.x) {
-    // row 0 takes the totals: column i is read and written by this thread only
-    float s = red[i];
-    for (int k = 1; k < R; ++k) s += red[k * 2 * C + i];
-    red[i] = s;
-  }
-  __syncthreads();
-
-  const int cg = C / G;
-  for (int g = tid; g < G; g += blockDim.x) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = g * cg; c < (g + 1) * cg; ++c) {
-      s1 += red[c];
-      s2 += red[C + c];
-    }
-    const size_t o = ((size_t)n * T + tile) * G + g;
-    part1[o] = s1;
-    part2[o] = s2;
-  }
+  const size_t o = ((size_t)n * T + tile) * G;
+  block_group_sums(a1, a2, red, C, G, part1 + o, part2 + o);
 }
 
-// grid (T, N); block as in gn_stats_kernel. Dynamic shared memory: 2 * G floats.
+// grid (T, N); block as in gn_stats_kernel. Dynamic shared memory:
+// mean[G] | rstd[G], then the fold's 2 * blockDim.x floats.
 __global__ void gn_apply_kernel(const __nv_bfloat16* __restrict__ x,
                                 const float* __restrict__ gamma,
                                 const float* __restrict__ beta,
@@ -117,43 +199,12 @@ __global__ void gn_apply_kernel(const __nv_bfloat16* __restrict__ x,
                                 __nv_bfloat16* __restrict__ y, int S, int C,
                                 int G, int T, int rows_per_tile, float eps,
                                 int silu) {
-  extern __shared__ float sm[];  // mean[G] | rstd[G]
-  const int tile = blockIdx.x, n = blockIdx.y, tid = threadIdx.x;
-  const int V = C / 8, R = blockDim.x / V, v = tid % V, r = tid / V;
-  const int cg = C / G;
-
-  // fold the T partials of this n: one warp per group, lanes over tiles
-  const int warp = tid / 32, lane = tid % 32, nwarps = blockDim.x / 32;
-  const float inv_count = (float)(1.0 / ((double)S * cg));
-  for (int g = warp; g < G; g += nwarps) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int t = lane; t < T; t += 32) {
-      const size_t o = ((size_t)n * T + t) * G + g;
-      s1 += part1[o];
-      s2 += part2[o];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-    }
-    if (lane == 0) {
-      const float mean = s1 * inv_count;
-      const float var = fmaxf(s2 * inv_count - mean * mean, 0.f);
-      sm[g] = mean;
-      sm[G + g] = rsqrtf(var + eps);
-    }
-  }
-  __syncthreads();
-
+  extern __shared__ float stat[];  // mean[G] | rstd[G]
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int V = C / 8, R = blockDim.x / V, v = threadIdx.x % V, r = threadIdx.x / V;
+  fold_stats(part1, part2, n, S, C, G, T, eps, stat + 2 * G, stat);
   float a[8], b[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = v * 8 + j, g = c / cg;
-    const float rstd = sm[G + g];
-    a[j] = rstd * gamma[c];
-    b[j] = beta[c] - sm[g] * rstd * gamma[c];
-  }
+  affine8(gamma, beta, stat, v, C, G, a, b);
 
   const int row0 = tile * rows_per_tile;
   const int row1 = min(S, row0 + rows_per_tile);
@@ -168,18 +219,50 @@ __global__ void gn_apply_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const int rr = row + k * R;
-      if (rr >= row1) continue;
-      float f[8];
-      unpack8(u[k], f);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float t = f[j] * a[j] + b[j];
-        if (silu) t = t / (1.f + __expf(-t));
-        f[j] = t;
-      }
-      *reinterpret_cast<uint4*>(y + base + (size_t)rr * C) = pack8(f);
+      if (rr < row1) *reinterpret_cast<uint4*>(y + base + (size_t)rr * C) = apply8(u[k], a, b, silu);
     }
   }
+}
+
+// grid (T, N), all blocks resident (cooperative launch); block as in
+// gn_stats_kernel. Dynamic shared memory: the slice, rows_per_tile * C bf16,
+// then R * 2 * C floats for the row reduction, then mean[G] | rstd[G].
+__global__ void __launch_bounds__(512, 1)
+gn_resident_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, float* __restrict__ part1,
+                   float* __restrict__ part2, __nv_bfloat16* __restrict__ y, int S, int C,
+                   int G, int T, int rows_per_tile, float eps, int silu) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int V = C / 8, R = blockDim.x / V, v = threadIdx.x % V, r = threadIdx.x / V;
+  uint4* sx = reinterpret_cast<uint4*>(smem);  // row i of the slice at sx[i * V]
+  float* red = reinterpret_cast<float*>(smem + (size_t)rows_per_tile * C * 2);
+  float* stat = red + R * 2 * C;
+
+  const int row0 = tile * rows_per_tile;
+  const int row1 = min(S, row0 + rows_per_tile);
+  const __nv_bfloat16* xn = x + (size_t)n * S * C + v * 8;
+  // every 16-byte copy of the slice in flight at once; each thread then sums
+  // the vectors it copied itself
+  for (int row = row0 + r; row < row1; row += R)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     static_cast<uint32_t>(__cvta_generic_to_shared(sx + (row - row0) * V + v))),
+                 "l"(xn + (size_t)row * C)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  float a1[8] = {0.f}, a2[8] = {0.f};
+  for (int row = row0 + r; row < row1; row += R) accumulate8(sx[(row - row0) * V + v], a1, a2);
+  const size_t o = ((size_t)n * T + tile) * G;
+  block_group_sums(a1, a2, red, C, G, part1 + o, part2 + o);
+
+  cooperative_groups::this_grid().sync();  // every block's partial sums are written
+
+  fold_stats(part1, part2, n, S, C, G, T, eps, red, stat);  // red is free again
+  float a[8], b[8];
+  affine8(gamma, beta, stat, v, C, G, a, b);
+  __nv_bfloat16* yn = y + (size_t)n * S * C + v * 8;
+  for (int row = row0 + r; row < row1; row += R)
+    *reinterpret_cast<uint4*>(yn + (size_t)row * C) = apply8(sx[(row - row0) * V + v], a, b, silu);
 }
 
 // V = C / 8 channel vectors times as many rows as fit 512 threads (C <= 4096).
@@ -205,10 +288,28 @@ extern "C" int gn_apply(const void* x, const void* gamma, const void* beta,
                         float eps, int silu, void* stream) {
   const int threads = block_threads(C);
   dim3 grid(T, N);
-  gn_apply_kernel<<<grid, threads, 2 * G * sizeof(float),
+  gn_apply_kernel<<<grid, threads, (2 * G + 2 * threads) * sizeof(float),
                     (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const float*)gamma, (const float*)beta,
       (const float*)part1, (const float*)part2, (__nv_bfloat16*)y, S, C, G, T,
       rows_per_tile, eps, silu);
   return (int)cudaGetLastError();
+}
+
+// One launch of gn_resident_kernel; refused (cudaErrorCooperativeLaunchTooLarge)
+// when the T * N blocks cannot all be resident at once.
+extern "C" int gn_resident(const void* x, const void* gamma, const void* beta, void* part1,
+                           void* part2, void* y, int N, int S, int C, int G, int T,
+                           int rows_per_tile, float eps, int silu, void* stream) {
+  const int threads = block_threads(C);
+  const int R = threads / (C / 8);
+  const size_t smem = (size_t)rows_per_tile * C * 2 + (size_t)R * 2 * C * sizeof(float) +
+                      2 * G * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(gn_resident_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&x, (void*)&gamma, (void*)&beta, &part1, &part2, &y, &S, &C,
+                  &G, &T, &rows_per_tile, &eps, &silu};
+  return (int)cudaLaunchCooperativeKernel((const void*)gn_resident_kernel, dim3(T, N),
+                                          dim3(threads), args, smem, (cudaStream_t)stream);
 }

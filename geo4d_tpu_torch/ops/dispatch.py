@@ -19,6 +19,7 @@ edited source rebuilds) and loaded with ctypes.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -43,23 +44,31 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gn_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gn_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "gn_resident": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 
 class KernelStats:
     """Per-kernel counters: `launches` counts kernel launches made by the
-    wrapper; `plain_on_cuda` counts calls of the plain version with a CUDA
+    wrapper and `by_shape` the same launches keyed by the kernel's shape
+    tuple; `plain_on_cuda` counts calls of the plain version with a CUDA
     tensor (only a comparison against the kernel does that)."""
 
     def __init__(self):
         self.launches = 0
+        self.by_shape: collections.Counter = collections.Counter()
         self.plain_on_cuda = 0
 
     def reset(self) -> None:
         self.launches = 0
+        self.by_shape.clear()
         self.plain_on_cuda = 0
+
+    def note_launch(self, shape: tuple) -> None:
+        self.launches += 1
+        self.by_shape[shape] += 1
 
     def note_plain(self, x: torch.Tensor) -> None:
         if x.is_cuda:
@@ -139,4 +148,6 @@ def kernels() -> ctypes.CDLL:
 
 
 def stream_handle(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of the current stream on x's device (an int; no Stream
+    object is built, which costs microseconds per launch)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)

@@ -3,12 +3,16 @@
 `group_norm` normalises x viewed as (N, S, C), with N = x.shape[0] and S
 the product of the middle axes: statistics per (n, group) over S x C/G in
 float32, then one affine y = x * a + b (+ silu) in x.dtype. On a CUDA tensor
-it launches csrc/group_norm.cu (two passes: per-tile partial sums, then fold
-and apply); on a CPU tensor it runs `group_norm_plain`.
+it launches csrc/group_norm.cu; on a CPU tensor it runs `group_norm_plain`.
+`plan` picks the kernel path from (N, S, C): one resident launch (x read
+once into shared memory, a grid-wide barrier, y written from shared memory)
+where every block's slice fits its shared memory, else two passes (partial
+sums per tile, then fold and apply).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -27,6 +31,8 @@ stats = KernelStats()
 _TARGET_BLOCKS = 1056   # 8 blocks for each of the H100's 132 SMs
 _MAX_TILES = 128        # caps the partial-sum fold each apply block reads
 _MAX_CHANNELS = 4096
+SM_COUNT = 132          # H100 SXM: one resident block per SM
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may use on Hopper
 
 
 def group_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -65,6 +71,39 @@ def tiling(n: int, s: int, c: int) -> tuple[int, int]:
     return math.ceil(s / rows), rows
 
 
+def block_threads(c: int) -> int:
+    """Threads of a block: C / 8 channel vectors times as many rows as fit 512."""
+    vecs = c // 8
+    return vecs * (512 // vecs)
+
+
+def resident_smem(rows: int, c: int, groups: int) -> int:
+    """Shared memory of a resident block (as csrc/group_norm.cu sizes it): the
+    slice in bf16, the row reduction in f32, mean and rstd per group."""
+    return rows * c * 2 + (block_threads(c) // (c // 8)) * 2 * c * 4 + 2 * groups * 4
+
+
+def max_resident_rows(c: int, groups: int) -> int:
+    """Most rows of C channels one resident block can hold."""
+    return (SMEM_PER_BLOCK - resident_smem(0, c, groups)) // (2 * c)
+
+
+def plan(n: int, s: int, c: int, groups: int, sms: int = SM_COUNT) -> tuple[str, int, int]:
+    """(path, tiles per n, rows per tile). "resident" when the N x tiles
+    blocks fit one per SM and each block's slice fits its shared memory, else
+    "two_pass" with `tiling`'s tiles."""
+    if n <= sms:
+        rows = math.ceil(s / (sms // n))
+        if rows <= max_resident_rows(c, groups):
+            return "resident", math.ceil(s / rows), rows
+    return ("two_pass", *tiling(n, s, c))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                groups: int, eps: float, silu: bool = False) -> torch.Tensor:
     """GroupNorm over the last axis of channels-last `x` (+ optional SiLU).
@@ -78,24 +117,31 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
     require(x.is_contiguous() and x.data_ptr() % 16 == 0,
             "x must be contiguous and 16-byte aligned")
-    require(c % 8 == 0 and c <= _MAX_CHANNELS and c % groups == 0,
-            f"C={c} must be a multiple of 8, <= {_MAX_CHANNELS}, divisible by G={groups}")
+    require(c % 8 == 0 and c <= _MAX_CHANNELS and c % groups == 0
+            and groups <= block_threads(c),
+            f"C={c} must be a multiple of 8, <= {_MAX_CHANNELS}, divisible by G={groups}, "
+            f"and G <= {block_threads(c)} (a thread per group folds the partial sums)")
     for p in (gamma, beta):
         require(p.dtype == torch.float32 and p.shape == (c,) and p.is_contiguous()
                 and p.device == x.device, "gamma/beta must be contiguous f32 (C,) on x's device")
     s = x.numel() // (n * c)
     require(s > 0, "empty input")
-    t, rows = tiling(n, s, c)
-    part1 = torch.empty((n, t, groups), dtype=torch.float32, device=x.device)
-    part2 = torch.empty_like(part1)
+    path, t, rows = plan(n, s, c, groups, _sm_count(x.device.index))
+    part = torch.empty((2, n, t, groups), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     lib, stream = kernels(), stream_handle(x)
-    check_launch("gn_stats", lib.gn_stats(
-        x.data_ptr(), part1.data_ptr(), part2.data_ptr(),
-        n, s, c, groups, t, rows, stream))
-    check_launch("gn_apply", lib.gn_apply(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part1.data_ptr(),
-        part2.data_ptr(), y.data_ptr(), n, s, c, groups, t, rows,
-        float(eps), int(silu), stream))
-    stats.launches += 1
+    if path == "resident":
+        check_launch("gn_resident", lib.gn_resident(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), y.data_ptr(), n, s, c, groups, t, rows,
+            float(eps), int(silu), stream))
+    else:
+        check_launch("gn_stats", lib.gn_stats(
+            x.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+            n, s, c, groups, t, rows, stream))
+        check_launch("gn_apply", lib.gn_apply(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), y.data_ptr(), n, s, c, groups, t, rows,
+            float(eps), int(silu), stream))
+    stats.note_launch((n, s, c, bool(silu)))
     return y

@@ -62,5 +62,5 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = kernels().temporal_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                        p, n, c, d, d ** -0.5, stream_handle(q))
     check_launch("temporal_attention", err)
-    stats.launches += 1
+    stats.note_launch((p, n, c, n_heads))
     return o

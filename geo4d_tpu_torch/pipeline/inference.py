@@ -213,8 +213,9 @@ def align_predictions(groups: np.ndarray, preds: Dict[str, object], imshape,
                       timer=None, device=None) -> GroupAligner:
     """Group alignment of window predictions (the `predict_*` dict: pts3d,
     conf, inv_depth, traj; tensors or numpy) into one scene: build the
-    aligner, preset known focals, initialise, run both phases. Runs on the
-    predictions' device unless `device` is given."""
+    aligner, preset known focals, initialise, run both phases. Runs on
+    `device`; by default on the predictions' device when they are tensors,
+    else on the CUDA device (an error where there is none)."""
     aligner = GroupAligner(groups, preds["pts3d"], preds["conf"], imshape,
                            invdepth=preds["inv_depth"], trajs=preds["traj"],
                            config=aligner_config, device=device)

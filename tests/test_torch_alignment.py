@@ -270,7 +270,7 @@ def both_aligners(sc, **cfg):
                          trajs=sc["trajs"], config=jcfg)
     jax_init_from_group(ja, jnp.asarray(sc["preds"]), jnp.asarray(sc["conf"]))
     pa = GroupAligner(GROUPS, sc["preds"], sc["conf"], sc["hw"], invdepth=sc["invd"],
-                      trajs=sc["trajs"], config=port_config(jcfg))
+                      trajs=sc["trajs"], config=port_config(jcfg), device="cpu")
     return ja, pa
 
 

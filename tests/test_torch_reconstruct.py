@@ -95,7 +95,7 @@ def test_align_predictions_against_jax_aligner(tiny_predictions):
                          config=JaxAlignerConfig(**kw))
     jax_init_from_group(ja, jnp.asarray(preds["pts3d"]), jnp.asarray(preds["conf"]))
     final_j = ja.run()
-    pa = align_predictions(groups, preds, (H, W), AlignerConfig(**kw))
+    pa = align_predictions(groups, preds, (H, W), AlignerConfig(**kw), device="cpu")
     assert pa.params["log_depth"].device.type == "cpu"
     final_p = pa.loss_fn(pa.params, False).item()
     for al, final in ((ja, final_j), (pa, final_p)):

@@ -14,8 +14,10 @@ the final `ok` line):
    the card, in bf16, at the shapes the main path gives it, and against a
    second launch of itself (bit for bit); prints max abs and rel error, the
    median device time of both (CUDA events, after warm-up, host work hidden
-   behind a device sleep; `median_ms`), the time of one call as the host
-   issues it (`call_ms`), the bound and the library call's device time.
+   behind a device sleep; `median_ms`), the same with a cold L2 (`cold_ms`:
+   an untimed L2-clearing write before each call), the time of one call as
+   the host issues it (`call_ms`), the bound and the library call's device
+   time.
 4. slice: the shipped model at full width (random-normal weights, seed 0)
    computes its text context with its CLIP text tower and the port's
    tokenizer, then runs `reconstruct` over a seeded 20-frame 256x576 video
@@ -27,7 +29,9 @@ the final `ok` line):
 5. shapes: every (kernel, shape) that the slice's reconstruct launched,
    checked as in phase 3 and timed beside its bound and its library call
    (one PyTorch call computing the same function, a yardstick the port
-   never calls); prints launches x ms per shape and each kernel's totals.
+   never calls); GroupNorm's two-pass shapes also time each pass alone
+   beside its own bound; prints launches x ms per shape and each kernel's
+   totals (GroupNorm's split by path and pass).
 6. reference: the tiny preset in bf16 on the card (kernels) against the
    same weights in float32 on the CPU (plain versions), on a small input.
 7. align_reference: the group aligner on an analytic 20-frame 64x144 scene
@@ -63,7 +67,9 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 # (name, source, TPU kernel it replaces)
 KERNELS = {
-    "group_norm": ("geo4d_tpu_torch/csrc/group_norm.cu", "geo4d_tpu/ops/group_norm.py:101"),
+    "group_norm": ("geo4d_tpu_torch/csrc/group_norm.cu",
+                   "geo4d_tpu/ops/group_norm.py:101 _gn_kernel, :140 _gn_stats_kernel, "
+                   ":168 _gn_apply_kernel"),
     "flash_attention": ("geo4d_tpu_torch/csrc/flash_attention.cu",
                         "geo4d_tpu/ops/flash_attention.py:70"),
     "temporal_attention": ("geo4d_tpu_torch/csrc/temporal_attention.cu",
@@ -87,14 +93,31 @@ PROMPT = "Output a video that assigns each 3D location in the world a consistent
 # about 1 ms of device time on an H100: longer than the host takes to
 # enqueue any function timed here
 SLEEP_CYCLES = 2_000_000
+# the H100's L2 holds 50 MB; a cold timing first writes this much, then
+# reads as much again
+SCRUB_BYTES = 64 << 20
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3, hide_host: bool = True) -> float:
+def scrub_l2():
+    """Clear the L2 before a cold timing (not timed): a 64 MB write evicts
+    the timed function's inputs and outputs, then a 64 MB read of another
+    buffer evicts the write's dirty lines, so that none is written back
+    inside the timed window. The buffer goes back to PyTorch's cache after
+    each use, so it holds no memory during the slice."""
+    half = SCRUB_BYTES // 4
+    buf = torch.empty(2 * half, dtype=torch.int32, device="cuda")
+    buf[:half].fill_(1)
+    buf[half:].sum()
+
+
+def median_ms(fn, reps: int = 20, warmup: int = 3, hide_host: bool = True,
+              cold: bool = False) -> float:
     """Median of `reps` times of one call of `fn` between two CUDA events.
     With `hide_host` the device first sleeps, so the host has enqueued the
     events and the whole call before the device reaches them: the time is
     the device's own (kernels and the gaps between them). Without it the
-    device waits on the host's work inside the call."""
+    device waits on the host's work inside the call. With `cold` the L2 is
+    cleared before each call (`scrub_l2`), outside the events."""
     for _ in range(warmup):
         fn()
     times = []
@@ -102,6 +125,8 @@ def median_ms(fn, reps: int = 20, warmup: int = 3, hide_host: bool = True) -> fl
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         if hide_host:
             torch.cuda._sleep(SLEEP_CYCLES)
+        if cold:
+            scrub_l2()
         start.record()
         fn()
         end.record()
@@ -128,6 +153,11 @@ PEAK_F32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 
+def _bound(nbytes, ops, peak):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound_ms(name, key):
     """Least time the card could take for one call at shape `key`: the larger
     of the bytes the function must move (each input read once, each output
@@ -136,16 +166,24 @@ def bound_ms(name, key):
     if name == "group_norm":
         n, s, c, silu = key
         elems = n * s * c
-        nbytes, ops, peak = 4 * elems + 8 * c, elems * (9 if silu else 5), PEAK_F32
-    elif name == "flash_attention":
+        return _bound(4 * elems + 8 * c, elems * (9 if silu else 5), PEAK_F32)
+    if name == "flash_attention":
         b, nq, nk, h = key
-        nbytes = 2 * 64 * h * b * (2 * nq + 2 * nk)
-        ops, peak = 4 * b * h * nq * nk * 64, PEAK_BF16
-    else:
-        p, n, c, heads = key
-        nbytes, ops, peak = 2 * 4 * p * n * c, 4 * p * n * n * c, PEAK_BF16
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        return _bound(2 * 64 * h * b * (2 * nq + 2 * nk), 4 * b * h * nq * nk * 64, PEAK_BF16)
+    p, n, c, heads = key
+    return _bound(2 * 4 * p * n * c, 4 * p * n * n * c, PEAK_BF16)
+
+
+def pass_bound_ms(which, key, tiles, groups):
+    """The bound of one GroupNorm pass alone: stats reads x (2 bytes per
+    element, 3 f32 operations) and writes the N x tiles x G partial sums;
+    apply reads x, the partial sums, gamma and beta and writes y (4 bytes
+    per element; 2 operations, 6 with the SiLU)."""
+    n, s, c, silu = key
+    elems, part = n * s * c, 2 * n * tiles * groups * 4
+    if which == "stats":
+        return _bound(2 * elems + part, 3 * elems, PEAK_F32)
+    return _bound(4 * elems + part + 8 * c, elems * (6 if silu else 2), PEAK_F32)
 
 
 def make_args(name, key, g, dev):
@@ -224,6 +262,7 @@ def check_case(name, key, g, dev, time_plain):
         row["plain_ms"] = min(ms_plain1, median_ms(plain))
     else:
         row["ms"], row["plain_ms"] = median_ms(kernel), None
+    row["cold_ms"] = median_ms(kernel, cold=True)
     row["call_ms"] = median_ms(kernel, hide_host=False)
     row["library_ms"] = median_ms(lib) if lib is not None else None
     del args, kernel, plain, lib
@@ -237,57 +276,127 @@ def fmt(v):
 
 def kernel_phase(dev):
     """Each kernel against its plain version at representative main-path
-    shapes; the first case of each kernel is the one the summary line reports."""
+    shapes, and K3 at the edges of its gate and plan (N = 17: two 16-row
+    tiles with masked keys; N = 32 with d = 24: a half k-step, and 999 jobs
+    that no block count divides; P = 1); the first case of each kernel is
+    the one the summary line reports."""
     cases = [("group_norm", (*shape, silu)) for shape in
              [(16, 2304, 320), (1, 36864, 320), (1, 36864, 960), (48, 147456, 128)]
              for silu in (False, True)]
     cases += [("flash_attention", key) for key in
               [(16, 2304, 2304, 5), (16, 576, 576, 10), (16, 2304, 16, 5), (16, 576, 16, 10)]]
     cases += [("temporal_attention", key) for key in
-              [(2304, 16, 320, 5), (2304, 16, 512, 8), (144, 16, 1280, 20)]]
+              [(2304, 16, 320, 5), (2304, 16, 512, 8), (144, 16, 1280, 20),
+               (576, 17, 640, 10), (333, 32, 72, 3), (1, 16, 320, 5)]]
     g = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for name, key in cases:
         row = check_case(name, key, g, dev, time_plain=True)
         b, kind = row["bound"]
         print(f"kernel {name:18s} {label(name, key):40s} max_abs={row['max_abs_err']:.3e} "
-              f"max_rel={row['max_rel_err']:.3e} ms={row['ms']:.4f} call_ms={row['call_ms']:.4f} "
-              f"plain_ms={row['plain_ms']:.4f} bound_ms={b:.4f} ({kind}) "
-              f"library_ms={fmt(row['library_ms'])} repeat_equal=True", flush=True)
+              f"max_rel={row['max_rel_err']:.3e} ms={row['ms']:.4f} cold_ms={row['cold_ms']:.4f} "
+              f"call_ms={row['call_ms']:.4f} plain_ms={row['plain_ms']:.4f} bound_ms={b:.4f} "
+              f"({kind}) library_ms={fmt(row['library_ms'])} repeat_equal=True", flush=True)
         r = results.setdefault(name, dict(row, shape=label(name, key)))
         r["max_abs_err"] = max(r["max_abs_err"], row["max_abs_err"])
     return results
 
 
+def pass_rows(key, g, dev):
+    """(path, passes) of a GroupNorm shape. At a two-pass shape `passes`
+    holds each pass alone (`two_pass_launches`), the pair checked bit for
+    bit against group_norm, each timed warm and cold beside its own bound;
+    else None (also where an older checkout, timed with --shapes-only, has
+    no per-pass launcher)."""
+    from geo4d_tpu_torch.ops import group_norm as gn
+
+    n, s, c, silu = key
+    args = make_args("group_norm", key, g, dev)
+    groups = args[3]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    path, tiles, _ = gn.plan(n, s, c, groups, sms)
+    launcher = getattr(gn, "two_pass_launches", None)
+    if path != "two_pass" or launcher is None:
+        return path, None
+    stats_pass, apply_pass, y = launcher(*args)
+    stats_pass()
+    apply_pass()
+    if not torch.equal(y, gn.group_norm(*args)):
+        raise AssertionError(f"group_norm {label('group_norm', key)}: the passes launched "
+                             "alone differ from group_norm")
+    passes = {which: {"ms": median_ms(fn), "cold_ms": median_ms(fn, cold=True),
+                      "bound": pass_bound_ms(which, key, tiles, groups)}
+              for which, fn in (("stats", stats_pass), ("apply", apply_pass))}
+    del args, y, stats_pass, apply_pass
+    torch.cuda.empty_cache()
+    return path, passes
+
+
+def new_totals(kernel=True):
+    """Zeroed totals; `kernel` adds the call and library times a pass alone
+    does not have."""
+    keys = ["total_ms", "total_cold_ms", "total_bound_ms"]
+    if kernel:
+        keys += ["total_call_ms", "total_library_ms", "total_ms_with_library"]
+    return {"launches": 0, **dict.fromkeys(keys, 0.0)}
+
+
+def add(t, n, row):
+    """Adds n launches of a shape's row to the totals t."""
+    t["launches"] += n
+    t["total_bound_ms"] += n * row["bound"][0]
+    for k in ("ms", "cold_ms", "call_ms"):
+        if f"total_{k}" in t:
+            t[f"total_{k}"] += n * row[k]
+    if "total_library_ms" in t and row["library_ms"] is not None:
+        t["total_library_ms"] += n * row["library_ms"]
+        t["total_ms_with_library"] += n * row["ms"]
+
+
+def print_totals(what, t):
+    call = f", x call_ms {t['total_call_ms']:.3f}" if "total_call_ms" in t else ""
+    lib = (f"x library_ms {t['total_library_ms']:.3f} (kernel over the same shapes "
+           f"{t['total_ms_with_library']:.3f})" if "total_library_ms" in t else "library none")
+    print(f"shapes {what}: launches {t['launches']}, sum launches x ms {t['total_ms']:.3f} "
+          f"(x cold_ms {t['total_cold_ms']:.3f}{call}), x bound_ms {t['total_bound_ms']:.3f}, "
+          f"{lib}", flush=True)
+
+
 def shapes_phase(dev, by_shape):
     """Every (kernel, shape) the slice's reconstruct launched: checked against
-    the plain version and a second launch, timed beside its bound and its
-    library call. Returns each kernel's main-path totals (ms summed over the
-    launches of one reconstruct)."""
+    the plain version and a second launch, timed (warm and cold L2) beside
+    its bound and its library call; GroupNorm's two-pass shapes also time
+    each pass alone. Returns each kernel's main-path totals (ms summed over
+    the launches of one reconstruct; GroupNorm's also split by path and
+    pass)."""
     g = torch.Generator(device=dev).manual_seed(1)
     totals = {}
     for name, counts in by_shape.items():
-        t = totals.setdefault(name, {"total_ms": 0.0, "total_call_ms": 0.0, "total_bound_ms": 0.0,
-                                     "total_library_ms": 0.0, "total_ms_with_library": 0.0})
+        t = totals.setdefault(name, new_totals())
         for key, n in sorted(counts.items(), key=lambda kv: -kv[1]):
             row = check_case(name, key, g, dev, time_plain=False)
             b, kind = row["bound"]
-            lib = row["library_ms"]
-            t["total_ms"] += n * row["ms"]
-            t["total_call_ms"] += n * row["call_ms"]
-            t["total_bound_ms"] += n * b
-            if lib is not None:
-                t["total_library_ms"] += n * lib
-                t["total_ms_with_library"] += n * row["ms"]
+            add(t, n, row)
             print(f"shape {name:18s} {label(name, key):40s} launches={n} ms={row['ms']:.4f} "
-                  f"call_ms={row['call_ms']:.4f} "
+                  f"cold_ms={row['cold_ms']:.4f} call_ms={row['call_ms']:.4f} "
                   f"bound_ms={b:.4f} ({kind}) share={b / row['ms']:.3f} "
-                  f"library_ms={fmt(lib)} launches_x_ms={n * row['ms']:.3f} "
-                  f"max_abs={row['max_abs_err']:.3e}", flush=True)
-        print(f"shapes {name}: launches {sum(counts.values())}, sum launches x ms "
-              f"{t['total_ms']:.3f} (x call_ms {t['total_call_ms']:.3f}), x bound_ms {t['total_bound_ms']:.3f}, x library_ms "
-              f"{t['total_library_ms']:.3f} (kernel over the same shapes "
-              f"{t['total_ms_with_library']:.3f})", flush=True)
+                  f"share_cold={b / row['cold_ms']:.3f} library_ms={fmt(row['library_ms'])} "
+                  f"launches_x_ms={n * row['ms']:.3f} max_abs={row['max_abs_err']:.3e}", flush=True)
+            if name != "group_norm":
+                continue
+            path, passes = pass_rows(key, g, dev)
+            add(t.setdefault(path, new_totals()), n, row)
+            for which, prow in (passes or {}).items():
+                pb, pkind = prow["bound"]
+                add(t.setdefault(which, new_totals(kernel=False)), n, prow)
+                print(f"shape group_norm.{which:7s} {label(name, key):40s} launches={n} "
+                      f"ms={prow['ms']:.4f} cold_ms={prow['cold_ms']:.4f} bound_ms={pb:.4f} "
+                      f"({pkind}) share={pb / prow['ms']:.3f} "
+                      f"share_cold={pb / prow['cold_ms']:.3f} library_ms=none", flush=True)
+        print_totals(name, t)
+        for part in ("resident", "two_pass", "stats", "apply"):
+            if part in t:
+                print_totals(f"{name}.{part}", t[part])
     return totals
 
 
@@ -541,7 +650,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
          "shape": results[name]["shape"], "ms": results[name]["ms"],
-         "call_ms": results[name]["call_ms"],
+         "cold_ms": results[name]["cold_ms"], "call_ms": results[name]["call_ms"],
          "plain_ms": results[name]["plain_ms"], "bound_ms": results[name]["bound"][0],
          "bound_by": results[name]["bound"][1], "library_ms": results[name]["library_ms"],
          **totals[name]}

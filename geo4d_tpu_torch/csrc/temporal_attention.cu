@@ -1,8 +1,9 @@
 // Per-pixel temporal self-attention on the heads-packed layout: q, k, v and
 // o are (P, N, C) bf16 with C = heads * Dh, straight off the QKV
-// projections. Each (pixel, head) is an independent N x N attention
-// (N = 16 frames on the main path): f32 logits, f32 softmax, weights rounded
-// to bf16 before the weighted sum (as the JAX path casts them), bf16 output.
+// projections. Each (pixel, head) is an independent N x N attention, a "job"
+// (N = 16 frames and Dh = 64 on the main path): f32 logits q.k * Dh^-1/2,
+// f32 row max, exp and sum, weights e / sum rounded to bf16 (the JAX kernel
+// divides, then casts), P.V accumulated in f32, bf16 output.
 //
 // Replaces the TPU kernel geo4d_tpu/ops/temporal_attention.py `_kernel`
 // (launched by `_packed`). The TPU kernel packed 8 pixels into a
@@ -10,131 +11,350 @@
 // here and is not carried over.
 //
 // Bound: device-memory bandwidth. The op moves 4 * P * N * C * 2 bytes (read
-// q, k, v, write o) against 4 * N * N * Dh flops per (pixel, head), far below
-// the card's flop-per-byte balance, so it runs on the CUDA cores. One warp
-// owns one (pixel, head): it copies the N x Dh slices of q, k, v into shared
-// memory with 16-byte loads (each slice row is Dh contiguous bf16 at row
-// stride C), computes the N x N logits, the row softmax and the N x Dh output
-// from shared memory, and writes the output two channels per lane so that a
-// warp stores whole 128-byte rows. K rows are padded by one 32-bit word so
-// that lanes reading different keys hit different banks.
+// q, k, v once, write o once; 94 MB at the UNet's finest level) against
+// 4 * N * N * C flops (0.76 GFLOP there): 28 us of memory against under 1 us
+// of bf16 tensor-core time. The arithmetic only has to stay out of the way
+// of the copies. The design:
+//   * one warp per job, with tensor cores through mma.sync.m16n8k16 (bf16 in,
+//     f32 accumulate): S = Q K^T is 2 * ceil(N / 16) n8 key tiles x Dh / 16
+//     k-steps per 16-row query tile, with Q and K fragments read once from
+//     shared memory by ldmatrix. wgmma is not used: its 64-row tiles would
+//     only stack four independent 16-row problems, and compute is not the
+//     limit;
+//   * the softmax runs on the S accumulator fragments in registers: a row
+//     lives on the 4 lanes of a quad, so two shfl_xor steps give its max and
+//     its sum, and the whole row (N <= 32 keys) is there, so no online
+//     rescale is needed. Rounded to bf16 pairs, the m16n8 accumulator layout
+//     is the A fragment of the next m16n8k16, so P never touches shared
+//     memory. O = P V is Dh / 8 n8 tiles x ceil(N / 16) k-steps with V
+//     fragments from ldmatrix.trans;
+//   * each warp owns a ring of `stages` job slots (q, k, v tiles) in shared
+//     memory and fills it with 16-byte cp.async copies (commit groups), so
+//     the copies of its next stages - 1 jobs run while it computes one; the
+//     warps of a block never wait for each other (no block-wide barrier).
+//     A block takes one contiguous range of jobs, the warps interleaved in
+//     it (neighbouring warps on neighbouring heads of one row), so blocks
+//     differ by at most one job. The launch plan (warps, stages, grid) is
+//     chosen in ops/temporal_attention.py (`plan`): at the main-path shapes
+//     16 warps of 2 slots, one block per SM, so that each SM keeps about
+//     100 KB of copies in flight;
+//   * a tile row in shared memory is Dh bf16, padded to an odd number of
+//     16-byte chunks, so the 8 rows one ldmatrix phase reads fall in 8
+//     different bank groups (a stride of C * 2 bytes, a multiple of 128,
+//     would put all 8 in the same banks);
+//   * the output tile is staged through the job's own q tile (only this warp
+//     reads it, and its Q fragments are in registers by then) and stored as
+//     whole 16-byte chunks, 8 lanes on one 128-byte row segment.
+// Edges: N < 16 (and 16 < N < 32) pads the tiles with zero rows, and keys
+// j >= N are masked to -inf before the max; 16 < N <= 32 takes two query
+// tiles, 4 n8 key tiles and two k-steps for P.V; Dh % 16 == 8 zeroes the
+// upper half of the last k-step's fragments (its addresses are clamped into
+// the head). Every sum is taken in one fixed order (no atomics): a launch on
+// the same input gives the same bits.
 //
-// Limits: N <= 32, Dh <= 128, Dh % 8 == 0, C % 8 == 0.
+// Limits: N <= 32, Dh <= 128, Dh % 8 == 0, C % Dh == 0, 16-byte aligned
+// tensors. Instances: Dh <= 32, 64 or 128 (n8 tiles beyond Dh are skipped at
+// run time) x one or two 16-row tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kMaxWarps = 16;
+constexpr int kMaxStages = 4;
+constexpr int kMaxSmem = 232448;  // shared memory a block may use on Hopper
+constexpr float kLog2e = 1.4426950408889634f;
 
-__global__ void __launch_bounds__(kWarps * 32)
-temporal_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int P, int N, int C,
-                     int Dh, float scale, int warp_bytes) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's newest commit groups are in
+// flight (the instruction takes an immediate)
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sum
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One job from its slot: q, k, v tiles of 16 * KS rows at a row stride of
+// `rs` bf16 (rows >= N are zero). Leaves O, rows < N, in the q tile.
+template <int DMAX, int KS>
+__device__ __forceinline__ void attend(__nv_bfloat16* tile, int tensor, int rs, int N, int Dh,
+                                       float scale_log2, int lane) {
+  constexpr int kSteps = DMAX / 16;  // k-steps of Q K^T
+  constexpr int kKeyTiles = 2 * KS;  // n8 key tiles
+  constexpr int kOutTiles = DMAX / 8;
+  const uint32_t sq = smem_u32(tile), sk = sq + tensor * 2, sv = sk + tensor * 2;
+  const int g = lane >> 2, tig = lane & 3;
+  // ldmatrix row addresses. A (Q) and V^T: matrices 0 / 1 are rows 0-7 /
+  // 8-15, 2 / 3 the same rows 8 columns on. B (K, n = key): matrices 0 / 1
+  // are keys 0-7 at columns +0 / +8, 2 / 3 keys 8-15.
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+
+#pragma unroll
+  for (int mt = 0; mt < KS; ++mt) {
+    float s[kKeyTiles][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if (kk * 16 < Dh) {
+        const bool half = Dh - kk * 16 == 8;  // columns kk*16+8.. lie outside the head
+        uint32_t a[4];
+        ldsm_x4(sq + ((mt * 16 + a_row) * rs + kk * 16 + (half ? 0 : a_col)) * 2, a);
+        if (half) a[2] = a[3] = 0u;
+#pragma unroll
+        for (int np = 0; np < KS; ++np) {
+          uint32_t b[4];
+          ldsm_x4(sk + ((np * 16 + b_row) * rs + kk * 16 + (half ? 0 : b_col)) * 2, b);
+          if (half) b[1] = b[3] = 0u;
+          mma_16816(s[2 * np], a, b[0], b[1]);
+          mma_16816(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+
+    // softmax of rows g (elements 0, 1) and g + 8 (elements 2, 3), in log2 units
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool key = nt * 8 + tig * 2 + e < N;
+        s[nt][e] = key ? s[nt][e] * scale_log2 : -INFINITY;
+        s[nt][2 + e] = key ? s[nt][2 + e] * scale_log2 : -INFINITY;
+        mx0 = fmaxf(mx0, s[nt][e]);
+        mx1 = fmaxf(mx1, s[nt][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nt][e] = ex2(s[nt][e] - mx0);
+        s[nt][2 + e] = ex2(s[nt][2 + e] - mx1);
+        sum0 += s[nt][e];
+        sum1 += s[nt][2 + e];
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+    }
+    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+    // normalised weights in bf16: key tiles 2ks, 2ks + 1 form the A fragment
+    // of P.V's k-step ks
+    uint32_t p[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      p[ks][0] = pack_bf16(s[2 * ks][0] * inv0, s[2 * ks][1] * inv0);
+      p[ks][1] = pack_bf16(s[2 * ks][2] * inv1, s[2 * ks][3] * inv1);
+      p[ks][2] = pack_bf16(s[2 * ks + 1][0] * inv0, s[2 * ks + 1][1] * inv0);
+      p[ks][3] = pack_bf16(s[2 * ks + 1][2] * inv1, s[2 * ks + 1][3] * inv1);
+    }
+
+    float o[kOutTiles][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int dp = 0; dp < kOutTiles / 2; ++dp) {
+        if (dp * 16 < Dh) {
+          const bool half = Dh - dp * 16 == 8;
+          uint32_t b[4];
+          ldsm_x4_trans(sv + ((ks * 16 + a_row) * rs + dp * 16 + (half ? 0 : a_col)) * 2, b);
+          mma_16816(o[2 * dp], p[ks], b[0], b[1]);
+          if (!half) mma_16816(o[2 * dp + 1], p[ks], b[2], b[3]);
+        }
+      }
+    }
+
+    // O rows of this query tile into the q tile (its Q fragments are read)
+    __syncwarp();
+    const int r0 = mt * 16 + g, r1 = r0 + 8;
+#pragma unroll
+    for (int nt = 0; nt < kOutTiles; ++nt) {
+      if (nt * 8 < Dh) {
+        const int col = nt * 8 + tig * 2;
+        if (r0 < N) *reinterpret_cast<uint32_t*>(tile + r0 * rs + col) = pack_bf16(o[nt][0], o[nt][1]);
+        if (r1 < N) *reinterpret_cast<uint32_t*>(tile + r1 * rs + col) = pack_bf16(o[nt][2], o[nt][3]);
+      }
+    }
+  }
+}
+
+// grid: `gridDim.x` blocks of W warps; block b takes jobs
+// [b * jobs / grid, (b + 1) * jobs / grid), warp w the jobs start + w + i * W.
+// Dynamic shared memory: per warp, `stages` slots of three (16 * KS) x rs
+// bf16 tiles (q, k, v).
+template <int DMAX, int KS>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+temporal_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int N,
+                     int C, int Dh, int heads, int jobs, int stages, int rs, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int heads = C / Dh;
-  const long job = (long)blockIdx.x * kWarps + warp;
-  if (job >= (long)P * heads) return;  // no block-wide barrier below
-  const int p = (int)(job / heads), hd = (int)(job % heads);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, W = blockDim.x >> 5;
+  const int tensor = 16 * KS * rs;  // bf16 of one tile
+  const int slot = 3 * tensor;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem) + (size_t)warp * stages * slot;
 
-  const int ld = Dh + 2;  // bf16 row stride in shared memory (odd word count)
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + warp * warp_bytes);
-  __nv_bfloat16* sk = sq + N * ld;
-  __nv_bfloat16* sv = sk + N * ld;
-  float* sS = reinterpret_cast<float*>(sv + N * ld);  // N x N, 4-byte aligned
+  const int start = (int)((long long)blockIdx.x * jobs / gridDim.x);
+  const int end = (int)(((long long)blockIdx.x + 1) * jobs / gridDim.x);
+  const int first = start + warp;
+  const int count = first < end ? (end - first + W - 1) / W : 0;
+  if (count == 0) return;  // no block-wide barrier below
 
-  const size_t base = (size_t)p * N * C + (size_t)hd * Dh;
-  const int chunks = Dh / 8;  // 16-byte chunks per row
-  for (int i = lane; i < N * chunks; i += 32) {
-    const int row = i / chunks, c8 = i % chunks;
-    const size_t g = base + (size_t)row * C + c8 * 8;
-    const uint4 uq = *reinterpret_cast<const uint4*>(q + g);
-    const uint4 uk = *reinterpret_cast<const uint4*>(k + g);
-    const uint4 uv = *reinterpret_cast<const uint4*>(v + g);
-    uint32_t* dq = reinterpret_cast<uint32_t*>(sq + row * ld + c8 * 8);
-    uint32_t* dk = reinterpret_cast<uint32_t*>(sk + row * ld + c8 * 8);
-    uint32_t* dv = reinterpret_cast<uint32_t*>(sv + row * ld + c8 * 8);
-    dq[0] = uq.x; dq[1] = uq.y; dq[2] = uq.z; dq[3] = uq.w;
-    dk[0] = uk.x; dk[1] = uk.y; dk[2] = uk.z; dk[3] = uk.w;
-    dv[0] = uv.x; dv[1] = uv.y; dv[2] = uv.z; dv[3] = uv.w;
+  if (N < 16 * KS) {  // the pad rows of every slot stay zero (copies write rows < N)
+    uint4* z = reinterpret_cast<uint4*>(ring);
+    for (int i = lane; i < stages * slot / 8; i += 32) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
   }
-  __syncwarp();
 
-  // logits S[i][j] = q_i . k_j * scale
-  const int half_d = Dh / 2;
-  for (int idx = lane; idx < N * N; idx += 32) {
-    const int i = idx / N, j = idx % N;
-    const __nv_bfloat162* qi = reinterpret_cast<const __nv_bfloat162*>(sq + i * ld);
-    const __nv_bfloat162* kj = reinterpret_cast<const __nv_bfloat162*>(sk + j * ld);
-    float acc = 0.f;
-    for (int c = 0; c < half_d; ++c) {
-      const float2 a = __bfloat1622float2(qi[c]);
-      const float2 b = __bfloat1622float2(kj[c]);
-      acc = fmaf(a.x, b.x, acc);
-      acc = fmaf(a.y, b.y, acc);
+  // lane's 16-byte chunks of an N x Dh tile: (row, chunk) from lane, then
+  // +32 chunks at a time
+  const int dc = Dh / 8, lr = lane / dc, lc = lane % dc, step_r = 32 / dc, step_c = 32 % dc;
+  const int chunks = N * dc;
+
+  auto base = [&](int i) {
+    const int job = first + i * W;
+    return (size_t)(job / heads) * N * C + (size_t)(job % heads) * Dh;
+  };
+  auto load = [&](int i) {
+    const size_t g = base(i);
+    const uint32_t dst = smem_u32(ring + (size_t)(i % stages) * slot);
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const __nv_bfloat16* src = (t == 0 ? q : t == 1 ? k : v) + g;
+      const uint32_t d = dst + t * tensor * 2;
+      int r = lr, c = lc;
+      for (int e = lane; e < chunks; e += 32) {
+        cp_async16(d + (r * rs + c * 8) * 2, src + (size_t)r * C + c * 8);
+        r += step_r;
+        c += step_c;
+        if (c >= dc) {
+          c -= dc;
+          ++r;
+        }
+      }
     }
-    sS[idx] = acc * scale;
-  }
-  __syncwarp();
+  };
 
-  // row softmax, one lane per query row
-  if (lane < N) {
-    float* row = sS + lane * N;
-    float mx = -INFINITY;
-    for (int j = 0; j < N; ++j) mx = fmaxf(mx, row[j]);
-    float sum = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float e = expf(row[j] - mx);
-      row[j] = e;
-      sum += e;
-    }
-    const float inv = 1.f / sum;
-    for (int j = 0; j < N; ++j)
-      row[j] = __bfloat162float(__float2bfloat16(row[j] * inv));
+  for (int i = 0; i < stages - 1; ++i) {
+    if (i < count) load(i);
+    cp_async_commit();  // one group per stage, empty or not, keeps the count
   }
-  __syncwarp();
+  for (int i = 0; i < count; ++i) {
+    if (i + stages - 1 < count) load(i + stages - 1);
+    cp_async_commit();
+    cp_async_wait(stages - 1);  // job i's copies have landed (this lane's)
+    __syncwarp();               // ... and every lane's
+    __nv_bfloat16* tile = ring + (size_t)(i % stages) * slot;
+    attend<DMAX, KS>(tile, tensor, rs, N, Dh, scale_log2, lane);
+    __syncwarp();
+    __nv_bfloat16* out = o + base(i);
+    int r = lr, c = lc;
+    for (int e = lane; e < chunks; e += 32) {
+      *reinterpret_cast<uint4*>(out + (size_t)r * C + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * rs + c * 8);
+      r += step_r;
+      c += step_c;
+      if (c >= dc) {
+        c -= dc;
+        ++r;
+      }
+    }
+    __syncwarp();  // the slot is read out before the next iteration refills it
+  }
+  cp_async_wait(0);
+}
 
-  // out[i][2c:2c+2] = sum_j w[i][j] * v[j][2c:2c+2]
-  for (int idx = lane; idx < N * half_d; idx += 32) {
-    const int i = idx / half_d, c = idx % half_d;
-    const float* w = sS + i * N;
-    float ax = 0.f, ay = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float2 b = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(sv + j * ld)[c]);
-      ax = fmaf(w[j], b.x, ax);
-      ay = fmaf(w[j], b.y, ay);
-    }
-    reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)i * C)[c] =
-        __floats2bfloat162_rn(ax, ay);
-  }
+using KernelFn = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+                          __nv_bfloat16*, int, int, int, int, int, int, int, float);
+
+KernelFn pick(int Dh, int ks) {
+  if (Dh <= 32) return ks == 1 ? temporal_attn_kernel<32, 1> : temporal_attn_kernel<32, 2>;
+  if (Dh <= 64) return ks == 1 ? temporal_attn_kernel<64, 1> : temporal_attn_kernel<64, 2>;
+  return ks == 1 ? temporal_attn_kernel<128, 1> : temporal_attn_kernel<128, 2>;
 }
 
 }  // namespace
 
-extern "C" int temporal_attention(const void* q, const void* k, const void* v,
-                                  void* o, int P, int N, int C, int Dh,
-                                  float scale, void* stream) {
-  const int ld = Dh + 2;
-  int warp_bytes = 3 * N * ld * 2 + N * N * 4;
-  warp_bytes = (warp_bytes + 15) / 16 * 16;
-  const int smem = kWarps * warp_bytes;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        temporal_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int heads = C / Dh;
-  const long jobs = (long)P * heads;
-  const int blocks = (int)((jobs + kWarps - 1) / kWarps);
-  temporal_attn_kernel<<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, P, N, C, Dh, scale,
-      warp_bytes);
+// One launch on the plan of ops/temporal_attention.py `plan`: `warps` warps
+// per block, `stages` job slots per warp, `grid` blocks. The shared memory is
+// sized here by the same rule as there (row stride: Dh bf16 padded to an odd
+// number of 16-byte chunks).
+extern "C" int temporal_attention(const void* q, const void* k, const void* v, void* o, int P,
+                                  int N, int C, int Dh, float scale, int warps, int stages,
+                                  int grid, void* stream) {
+  if (P < 1 || N < 1 || N > 32 || Dh < 8 || Dh > 128 || Dh % 8 != 0 || C % Dh != 0 ||
+      (long long)P * (C / Dh) > 0x7fffffff || warps < 1 || warps > kMaxWarps || stages < 1 ||
+      stages > kMaxStages || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ks = N > 16 ? 2 : 1;
+  const int dc = Dh / 8;
+  const int rs = 8 * (dc % 2 ? dc : dc + 1);
+  const size_t smem = (size_t)warps * stages * 3 * 16 * ks * rs * 2;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const KernelFn fn = pick(Dh, ks);
+  const cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, N, C, Dh, C / Dh, P * (C / Dh), stages, rs, scale * kLog2e);
   return (int)cudaGetLastError();
 }

@@ -36,6 +36,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "geo4d_tpu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
+SM_COUNT = 132           # H100 SXM; the wrappers plan with the card's own count
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may use on Hopper
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -46,7 +49,7 @@ _SIGNATURES = {
     "gn_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "gn_resident": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
 }
 
 
@@ -145,6 +148,12 @@ def kernels() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_handle(x: torch.Tensor) -> int:

@@ -12,16 +12,18 @@ sums per tile, then fold and apply).
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
 from geo4d_tpu_torch.ops.dispatch import (
+    SM_COUNT,
+    SMEM_PER_BLOCK,
     KernelStats,
     check_launch,
     kernels,
     require,
+    sm_count,
     stream_handle,
     use_kernel,
 )
@@ -31,8 +33,6 @@ stats = KernelStats()
 _TARGET_BLOCKS = 1056   # 8 blocks for each of the H100's 132 SMs
 _MAX_TILES = 128        # caps the partial-sum fold each apply block reads
 _MAX_CHANNELS = 4096
-SM_COUNT = 132          # H100 SXM: one resident block per SM
-SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may use on Hopper
 
 
 def group_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -99,19 +99,9 @@ def plan(n: int, s: int, c: int, groups: int, sms: int = SM_COUNT) -> tuple[str,
     return ("two_pass", *tiling(n, s, c))
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-               groups: int, eps: float, silu: bool = False) -> torch.Tensor:
-    """GroupNorm over the last axis of channels-last `x` (+ optional SiLU).
-
-    gamma/beta: (C,) float32. Returns a tensor of x's shape and dtype.
-    """
-    if not use_kernel(x):
-        return group_norm_plain(x, gamma, beta, groups, eps, silu)
+def _checked(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+             groups: int) -> tuple[int, int, int]:
+    """(N, S, C) of a tensor the kernels take; raises on anything else."""
     n, c = x.shape[0], x.shape[-1]
     require(x.dim() >= 2, f"x must be (N, ..., C), got {tuple(x.shape)}")
     require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
@@ -126,22 +116,64 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                 and p.device == x.device, "gamma/beta must be contiguous f32 (C,) on x's device")
     s = x.numel() // (n * c)
     require(s > 0, "empty input")
-    path, t, rows = plan(n, s, c, groups, _sm_count(x.device.index))
+    return n, s, c
+
+
+def _two_pass(x, gamma, beta, groups, eps, silu, n, s, c, t, rows):
     part = torch.empty((2, n, t, groups), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     lib, stream = kernels(), stream_handle(x)
-    if path == "resident":
-        check_launch("gn_resident", lib.gn_resident(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), y.data_ptr(), n, s, c, groups, t, rows,
-            float(eps), int(silu), stream))
-    else:
+
+    def stats_pass():
         check_launch("gn_stats", lib.gn_stats(
             x.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
             n, s, c, groups, t, rows, stream))
+
+    def apply_pass():
         check_launch("gn_apply", lib.gn_apply(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), y.data_ptr(), n, s, c, groups, t, rows,
             float(eps), int(silu), stream))
+
+    return stats_pass, apply_pass, y
+
+
+def two_pass_launches(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                      groups: int, eps: float, silu: bool = False):
+    """The two launches of the two-pass path, each on its own: returns
+    (stats_pass, apply_pass, y). `stats_pass()` writes the per-tile partial
+    sums, `apply_pass()` folds them and writes y, on buffers allocated here.
+    `group_norm` runs the same pair in order; chip_smoke.py times each pass
+    alone. A CUDA tensor of a shape `plan` sends to the two-pass path only;
+    the launches are not counted in `stats`."""
+    require(x.is_cuda, "the passes launch on a CUDA tensor")
+    n, s, c = _checked(x, gamma, beta, groups)
+    path, t, rows = plan(n, s, c, groups, sm_count(x.device.index))
+    require(path == "two_pass", f"(N, S, C) = {(n, s, c)} takes the resident path")
+    return _two_pass(x, gamma, beta, groups, eps, silu, n, s, c, t, rows)
+
+
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               groups: int, eps: float, silu: bool = False) -> torch.Tensor:
+    """GroupNorm over the last axis of channels-last `x` (+ optional SiLU).
+
+    gamma/beta: (C,) float32. Returns a tensor of x's shape and dtype.
+    """
+    if not use_kernel(x):
+        return group_norm_plain(x, gamma, beta, groups, eps, silu)
+    n, s, c = _checked(x, gamma, beta, groups)
+    path, t, rows = plan(n, s, c, groups, sm_count(x.device.index))
+    if path == "resident":
+        part = torch.empty((2, n, t, groups), dtype=torch.float32, device=x.device)
+        y = torch.empty_like(x)
+        check_launch("gn_resident", kernels().gn_resident(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), y.data_ptr(), n, s, c, groups, t, rows,
+            float(eps), int(silu), stream_handle(x)))
+    else:
+        stats_pass, apply_pass, y = _two_pass(x, gamma, beta, groups, eps, silu,
+                                              n, s, c, t, rows)
+        stats_pass()
+        apply_pass()
     stats.note_launch((n, s, c, bool(silu)))
     return y

@@ -2,20 +2,28 @@
 
 `temporal_attention(q, k, v, n_heads)` takes q/k/v of shape (P, N, C) with
 C = n_heads * d, straight off the QKV projections (no head split), and runs
-P * n_heads independent N x N attentions. On a CUDA tensor it launches
-csrc/temporal_attention.cu (one warp per pixel and head); on a CPU tensor
-it runs `temporal_attention_plain`.
+P * n_heads independent N x N attentions ("jobs"). On a CUDA tensor it
+launches csrc/temporal_attention.cu (one warp per job, mma.sync products,
+each warp's next jobs copied ahead by cp.async into a ring of `stages`
+slots) on the launch `plan`; on a CPU tensor it runs
+`temporal_attention_plain`.
 """
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 from geo4d_tpu_torch.ops.dispatch import (
+    SM_COUNT,
+    SMEM_PER_BLOCK,
     KernelStats,
     check_launch,
     kernels,
     require,
+    sm_count,
     stream_handle,
     use_kernel,
 )
@@ -24,6 +32,48 @@ stats = KernelStats()
 
 MAX_SEQ = 32
 MAX_HEAD_DIM = 128
+MAX_WARPS = 16   # as csrc/temporal_attention.cu's kMaxWarps
+MAX_STAGES = 4   # ... and kMaxStages
+
+
+class Plan(NamedTuple):
+    warps: int            # warps per block, one job each at a time
+    stages: int           # job slots in each warp's ring
+    smem: int             # dynamic shared memory of a block, bytes
+    grid: int             # blocks
+    jobs_per_block: int   # most jobs one block takes (blocks differ by at most one)
+
+
+def row_elems(d: int) -> int:
+    """bf16 of one tile row in shared memory: d padded to an odd number of
+    16-byte chunks, so the 8 rows of an ldmatrix phase hit 8 bank groups."""
+    chunks = d // 8
+    return 8 * (chunks if chunks % 2 else chunks + 1)
+
+
+def job_smem(n: int, d: int) -> int:
+    """Bytes of one job slot: q, k and v tiles of 16 * ceil(N / 16) rows."""
+    return 3 * 16 * math.ceil(n / 16) * row_elems(d) * 2
+
+
+def plan(p: int, n: int, c: int, heads: int, sms: int = SM_COUNT) -> Plan:
+    """Launch plan of one call on (P, N, C) with `heads` heads. One block per
+    SM at most, each taking a contiguous range of the P * heads jobs; up to
+    16 warps, as many as the block has jobs and as leave room for two slots
+    each; as many slots per warp (up to 4) as its jobs use and the 227 KB of
+    a block's shared memory hold. At N = 16, d = 64 a slot is 6.75 KB: 16
+    warps of 2 slots, each with its next job's 6 KB of copies in flight
+    while it computes one (faster on the card than 8 warps of 4 slots;
+    PERF.md has both)."""
+    d = c // heads
+    jobs = p * heads
+    slot = job_smem(n, d)
+    grid = min(sms, jobs)
+    per_block = math.ceil(jobs / grid)
+    warps = max(1, min(MAX_WARPS, per_block, SMEM_PER_BLOCK // (2 * slot)))
+    per_warp = math.ceil(per_block / warps)
+    stages = max(2, min(MAX_STAGES, per_warp, SMEM_PER_BLOCK // (warps * slot)))
+    return Plan(warps, stages, warps * stages * slot, grid, per_block)
 
 
 def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,15 +102,18 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p, n, c = q.shape
     require(c % n_heads == 0, f"C={c} not divisible by {n_heads} heads")
     d = c // n_heads
-    require(1 <= n <= MAX_SEQ and d % 8 == 0 and d <= MAX_HEAD_DIM,
-            f"need N <= {MAX_SEQ}, d % 8 == 0, d <= {MAX_HEAD_DIM}; got N={n}, d={d}")
+    require(p >= 1 and 1 <= n <= MAX_SEQ and d % 8 == 0 and d <= MAX_HEAD_DIM,
+            f"need P >= 1, N <= {MAX_SEQ}, d % 8 == 0, d <= {MAX_HEAD_DIM}; "
+            f"got P={p}, N={n}, d={d}")
     for t in (q, k, v):
         require(t.shape == (p, n, c) and t.dtype == torch.bfloat16 and t.is_contiguous()
                 and t.data_ptr() % 16 == 0 and t.device == q.device,
                 "q/k/v must be contiguous, 16-byte aligned bf16 (P, N, C) on one device")
     o = torch.empty_like(q)
+    pl = plan(p, n, c, n_heads, sm_count(q.device.index))
     err = kernels().temporal_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                       p, n, c, d, d ** -0.5, stream_handle(q))
+                                       p, n, c, d, d ** -0.5, pl.warps, pl.stages, pl.grid,
+                                       stream_handle(q))
     check_launch("temporal_attention", err)
     stats.note_launch((p, n, c, n_heads))
     return o

@@ -1,12 +1,13 @@
 """Host-side planning of the port's kernels, its launch counters and the
 aligner's default device, on the CPU; and, marked `gpu` (skipped here),
-K1 and K2 against their plain versions at the edges of those plans.
+K1-K3 against their plain versions at the edges of those plans.
 
 The plans are plain Python (ops/flash_attention.py `plan`,
-ops/group_norm.py `plan`), so their shapes are checked here at every shape
-the slice's `reconstruct` gives each kernel (listed from the shapes phase of
-chip_smoke.py on the card): every row and every key is covered exactly once,
-and a resident K1 block fits the shared memory of one Hopper block.
+ops/group_norm.py `plan`, ops/temporal_attention.py `plan`), so their shapes
+are checked here at every shape the slice's `reconstruct` gives each kernel
+(listed from the shapes phase of chip_smoke.py on the card): every row, key
+and job is covered exactly once, and a block's shared memory fits one
+Hopper block.
 """
 
 import math
@@ -36,6 +37,11 @@ GN_MAIN_PATH = [
     (16, 147456, 128), (16, 147456, 256), (48, 2304, 512), (48, 9216, 512), (48, 36864, 256),
     (48, 36864, 512), (48, 147456, 128), (48, 147456, 256),
 ]
+# (P, N, C, heads) of every temporal attention the slice's reconstruct launches
+TA_MAIN_PATH = [(2304, 16, 320, 5), (576, 16, 640, 10), (144, 16, 1280, 20),
+                (2304, 16, 512, 8), (36, 16, 1280, 20)]
+# the edges of K3's gate (N <= 32, d % 8 == 0, d <= 128), at 37 pixels x 3 heads
+TA_EDGES = [(37, n, 3 * d, 3) for n in (1, 5, 16, 17, 32) for d in (8, 24, 64, 128)]
 
 
 @pytest.mark.parametrize("nq,nk,bk,q_tiles", [
@@ -88,6 +94,59 @@ def test_group_norm_plan_boundary(c):
     assert gn.resident_smem(rows, c, groups) <= gn.SMEM_PER_BLOCK
     assert gn.resident_smem(rows + 1, c, groups) > gn.SMEM_PER_BLOCK
     assert gn.plan(1, s + 1, c, groups)[0] == "two_pass"
+
+
+def _kernel_jobs(plan, jobs):
+    """The jobs each warp of each block takes, as csrc/temporal_attention.cu
+    splits them: block b the range [b * jobs // grid, (b + 1) * jobs // grid),
+    warp w every warps-th job of it from the w-th."""
+    taken = []
+    for b in range(plan.grid):
+        start, end = b * jobs // plan.grid, (b + 1) * jobs // plan.grid
+        assert end - start <= plan.jobs_per_block
+        for w in range(plan.warps):
+            taken += range(start + w, end, plan.warps)
+    return taken
+
+
+@pytest.mark.parametrize("p,n,c,heads", TA_MAIN_PATH + TA_EDGES)
+def test_temporal_attention_plan(p, n, c, heads):
+    pl = ta.plan(p, n, c, heads)
+    d, jobs = c // heads, p * heads
+    assert pl.smem == pl.warps * pl.stages * ta.job_smem(n, d) <= dispatch.SMEM_PER_BLOCK
+    assert 1 <= pl.warps <= ta.MAX_WARPS and 2 <= pl.stages <= ta.MAX_STAGES
+    assert pl.grid <= dispatch.SM_COUNT
+    assert pl.grid * (pl.jobs_per_block - 1) < jobs <= pl.grid * pl.jobs_per_block
+    assert sorted(_kernel_jobs(pl, jobs)) == list(range(jobs))   # every job exactly once
+
+
+@pytest.mark.parametrize("p,n,c,heads", TA_MAIN_PATH)
+def test_temporal_attention_plan_keeps_copies_in_flight(p, n, c, heads):
+    """At a main-path shape every block starts with >= 32 KB of q, k, v
+    copies in flight (all of its warps' first `stages` jobs), and every SM
+    has a block."""
+    pl = ta.plan(p, n, c, heads)
+    job_bytes = 3 * n * (c // heads) * 2
+    per_warp = math.ceil(pl.jobs_per_block / pl.warps)
+    assert pl.grid == dispatch.SM_COUNT
+    assert pl.warps * min(pl.stages, per_warp) * job_bytes >= 32 * 1024
+
+
+def test_temporal_attention_plan_at_the_largest_slot():
+    pl = ta.plan(1000, 32, 1280, 10)   # N = 32, d = 128: 25.5 KB a slot
+    assert (pl.warps, pl.stages) == (4, 2) and pl.smem <= dispatch.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_temporal_attention_rows_are_an_odd_number_of_chunks(d):
+    r = ta.row_elems(d)
+    assert d <= r <= d + 8 and r % 8 == 0 and (r // 8) % 2 == 1
+
+
+def test_group_norm_passes_need_a_cuda_tensor():
+    x = torch.randn(2, 8, 16).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gn.two_pass_launches(x, torch.ones(16), torch.zeros(16), 4, 1e-5)
 
 
 def test_by_shape_counter_on_the_cpu():
@@ -181,3 +240,34 @@ def test_group_norm_kernel_at_the_resident_boundary(extra_rows, silu):
     assert torch.equal(got, gn.group_norm(x, gamma, beta, groups, 1e-5, silu))
     want = gn.group_norm_plain(x, gamma, beta, groups, 1e-5, silu)
     assert_close(got.float(), want.float().cpu().numpy(), BF16_ATOL, BF16_RTOL, "gn boundary")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,n,c,heads", TA_EDGES + [
+    (1, 16, 320, 5),      # P = 1: five jobs, five warps of one block
+    (1, 32, 128, 1),      # one job
+    (2305, 16, 320, 5),   # 11525 jobs: blocks of 87 and 88
+])
+def test_temporal_attention_kernel_edges(p, n, c, heads):
+    dev = cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(p, n, c, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    got = ta.temporal_attention(q, k, v, heads)
+    assert torch.equal(got, ta.temporal_attention(q, k, v, heads))
+    want = ta.temporal_attention_plain(q, k, v, heads)
+    assert_close(got.float(), want.float().cpu().numpy(), BF16_ATOL, BF16_RTOL, "temporal edge")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,s,c,silu", [(1, 36864, 960, False), (4, 147456, 128, True)])
+def test_group_norm_passes_alone_equal_group_norm(n, s, c, silu):
+    dev = cuda_or_skip()
+    groups = num_groups_for(c)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn(n, s, c, generator=g, device=dev) * 3 + 1).to(torch.bfloat16)
+    gamma = torch.randn(c, generator=g, device=dev)
+    beta = torch.randn(c, generator=g, device=dev)
+    stats_pass, apply_pass, y = gn.two_pass_launches(x, gamma, beta, groups, 1e-5, silu)
+    stats_pass()
+    apply_pass()
+    assert torch.equal(y, gn.group_norm(x, gamma, beta, groups, 1e-5, silu))

@@ -71,7 +71,10 @@ def test_spatial_attention_plain_matches_jax(nq, nk):
     assert_close(got, want, F32_ATOL, F32_RTOL, f"flash_attention plain nq={nq} nk={nk}")
 
 
-@pytest.mark.parametrize("n,heads,d", [(16, 5, 64), (4, 2, 16)])
+@pytest.mark.parametrize("n,heads,d", [
+    (16, 5, 64), (4, 2, 16),
+    (32, 3, 24), (17, 2, 8), (1, 2, 128),   # the edges of the kernel's gate
+])
 def test_temporal_attention_plain_matches_jax(n, heads, d):
     from geo4d_tpu.nn.attention import dot_product_attention as jax_attention
 

@@ -37,6 +37,20 @@ the final `ok` line):
 7. align_reference: the group aligner on an analytic 20-frame 64x144 scene
    (windows of 16, stride 4), float32 on the card against float32 on the
    CPU, and both against the scene's ground truth.
+8. evaluate (run right after phase 4, with its model and text context): the
+   port's evaluation entry point (geo4d_tpu_torch.cli.evaluate) on a
+   synthetic Sintel sequence `alley_2` written to a temporary directory (20
+   PNG frames, .dpt depths and .cam cameras at 1024x436) at Sintel's 576x256
+   with the CLI's defaults (5-step DDIM, 500 aligner iterations, lad2 at
+   lr 1e-2 for 5000 steps); checks every output file, finite AbsRel and
+   delta < 1.25, that the pose evaluation did not take its failure branch,
+   that every kernel launched and no plain version ran on a CUDA tensor;
+   prints the stage times.
+9. resolutions: one window of `predict_windows` (1 DDIM step, full width)
+   at Bonn's 512x384 and KITTI's 640x192; every (kernel, shape) it launched
+   is checked against its plain version and a second launch (not timed);
+   then every `decode_modality` layout once on a 16-frame window of random
+   latents at 576x256.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -56,6 +70,7 @@ import argparse
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -85,8 +100,9 @@ REF_REL_L2 = 1e-2
 # relative to frame 0 (the world frame is a free gauge of the objective)
 ALIGN_ROT_DEG = 0.1
 ALIGN_REL = 1e-3
-# nothing of these may be loaded by the end of the run
-FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "cv2", "geo4d_tpu")
+# nothing of these may be loaded by the end of the run; Pillow is also made
+# unimportable before the port is imported
+FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "cv2", "geo4d_tpu", "PIL")
 PROMPT = "Output a video that assigns each 3D location in the world a consistent color."
 
 
@@ -242,9 +258,10 @@ def label(name, key):
     return "P={} N={} C={} heads={}".format(*key)
 
 
-def check_case(name, key, g, dev, time_plain):
+def check_kernel(name, key, g, dev):
     """The kernel against its plain version and a second launch of itself at
-    one shape, then its time, its bound and its library call's time."""
+    one shape. Returns (args, kernel, plain, library call, max abs error,
+    max rel error)."""
     args = make_args(name, key, g, dev)
     kernel, plain, lib = calls(name, args)
     got = kernel()
@@ -254,7 +271,13 @@ def check_case(name, key, g, dev, time_plain):
     max_abs, max_rel = compare(f"{name} {label(name, key)}", got, want)
     if not repeat:
         raise AssertionError(f"{name} {label(name, key)}: two launches on the same input differ")
-    del got, want
+    return args, kernel, plain, lib, max_abs, max_rel
+
+
+def check_case(name, key, g, dev, time_plain):
+    """`check_kernel`, then the kernel's time, its bound and its library
+    call's time."""
+    args, kernel, plain, lib, max_abs, max_rel = check_kernel(name, key, g, dev)
     row = {"max_abs_err": max_abs, "max_rel_err": max_rel, "bound": bound_ms(name, key)}
     if time_plain:
         ms_plain1 = median_ms(plain)
@@ -404,9 +427,6 @@ def slice_phase(dev):
     from geo4d_tpu_torch.cli.common import prepare_inference_params
     from geo4d_tpu_torch.core.timing import StageTimer
     from geo4d_tpu_torch.models.presets import flagship, init_random_
-    from geo4d_tpu_torch.ops import flash_attention as fa
-    from geo4d_tpu_torch.ops import group_norm as gn
-    from geo4d_tpu_torch.ops import temporal_attention as ta
     from geo4d_tpu_torch.pipeline.export import save_results_dir
     from geo4d_tpu_torch.pipeline.inference import (InferenceConfig, WindowPredictor,
                                                     reconstruct, sliding_windows)
@@ -439,8 +459,7 @@ def slice_phase(dev):
     warm_sums = {k: float(v.double().sum()) for k, v in warm.items()}
     del warm
 
-    stats = {"group_norm": gn.stats, "flash_attention": fa.stats,
-             "temporal_attention": ta.stats}
+    stats = kernel_stats()
     timer = StageTimer(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     for s in stats.values():
@@ -450,9 +469,8 @@ def slice_phase(dev):
                                      uncond_text_ctx=uncond_text_ctx, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: s.launches for k, s in stats.items()}
+    launches = check_path_launches("slice", stats)
     by_shape = {k: dict(s.by_shape) for k, s in stats.items()}
-    plain_on_cuda = {k: s.plain_on_cuda for k, s in stats.items()}
     peak = torch.cuda.max_memory_allocated(dev)
 
     g, t, h, w = groups.shape[0], 16, 256, 576
@@ -465,11 +483,6 @@ def slice_phase(dev):
             raise AssertionError(f"{k}: left the device ({out[k].device})")
         if k != "valid" and not bool(torch.isfinite(out[k]).all()):
             raise AssertionError(f"{k}: non-finite values")
-    for k, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-    if any(plain_on_cuda.values()):
-        raise AssertionError(f"a plain version ran on a CUDA tensor: {plain_on_cuda}")
     if scene.params["log_depth"].device.type != "cuda":
         raise AssertionError("the aligner did not run on the card")
     if not np.isfinite(scene.final_loss):
@@ -504,12 +517,209 @@ def slice_phase(dev):
     print(f"slice: results directory written and checked in {export_s:.2f} s "
           f"(pred_traj {traj.shape}, pred_intrinsics {K.shape}, 20 depth and conf maps)")
     print(f"slice: peak memory allocated {peak} bytes")
-    print(f"slice: launches {json.dumps(launches)} plain_on_cuda {json.dumps(plain_on_cuda)}")
     print(f"slice: valid fraction {float(out['valid'].float().mean()):.4f}", flush=True)
     sums = {k: float(v.double().sum()) for k, v in out.items()}
     print(f"slice: prediction sums {json.dumps(sums)}; the warm-up's (same seed) "
           f"{'equal' if sums == warm_sums else json.dumps(warm_sums)}", flush=True)
-    return launches, by_shape
+    return launches, by_shape, model, text_ctx, uncond_text_ctx
+
+
+def kernel_stats():
+    from geo4d_tpu_torch.ops import flash_attention as fa
+    from geo4d_tpu_torch.ops import group_norm as gn
+    from geo4d_tpu_torch.ops import temporal_attention as ta
+
+    return {"group_norm": gn.stats, "flash_attention": fa.stats, "temporal_attention": ta.stats}
+
+
+def check_path_launches(what, stats, need=KERNELS):
+    """Fails unless every kernel in `need` launched since the counts were
+    reset and no plain version ran on a CUDA tensor; returns the launches."""
+    launches = {k: s.launches for k, s in stats.items()}
+    plain_on_cuda = {k: s.plain_on_cuda for k, s in stats.items()}
+    print(f"{what}: launches {json.dumps(launches)} plain_on_cuda {json.dumps(plain_on_cuda)}",
+          flush=True)
+    for k in need:
+        if launches[k] == 0:
+            raise AssertionError(f"{what}: kernel {k} was not launched")
+    if any(plain_on_cuda.values()):
+        raise AssertionError(f"{what}: a plain version ran on a CUDA tensor: {plain_on_cuda}")
+    return launches
+
+
+TAG = 202021.25     # the Sintel .dpt / .cam file tag
+SINTEL_HW = (436, 1024)
+# (W, H) of the evaluation datasets whose shapes the slice does not reach
+RESOLUTIONS = {"bonn": (512, 384), "kitti": (640, 192)}
+# decode_modality runs at the slice's resolution
+DECODE_HW = (256, 576)
+
+
+def write_sintel(root, n=20, seq="alley_2"):
+    """A Sintel sequence in the dataset's layout: n PNG frames (a textured
+    image panning sideways), .dpt depth maps (a slanted plane with 5% noise)
+    and .cam files (fixed intrinsics; the camera moves along x and turns
+    slowly), all at the dataset's 1024x436."""
+    from geo4d_tpu_torch.data.images import write_png
+
+    h, w = SINTEL_HW
+    dirs = [os.path.join(root, "training", d, seq) for d in ("final", "depth", "camdata_left")]
+    for d in dirs:
+        os.makedirs(d)
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:h, :w]
+    texture = rng.integers(0, 256, (h // 4, w // 4 + n * 4, 3), dtype=np.uint8)
+    texture = np.repeat(np.repeat(texture, 4, 0), 4, 1)
+    K = np.array([[600.0, 0, w / 2], [0, 600.0, h / 2], [0, 0, 1]])
+    for i in range(n):
+        write_png(os.path.join(dirs[0], f"frame_{i + 1:04d}.png"),
+                  np.ascontiguousarray(texture[:, 8 * i:8 * i + w]))
+        depth = (3 + 4 * xx / w + 2 * yy / h) * rng.uniform(0.95, 1.05, (h, w))
+        with open(os.path.join(dirs[1], f"frame_{i + 1:04d}.dpt"), "wb") as f:
+            f.write(struct.pack("<fii", TAG, w, h))
+            depth.astype(np.float32).tofile(f)
+        a = 0.01 * i
+        c2w = np.eye(4)
+        c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        c2w[:3, 3] = [0.1 * i, 0.0, 0.02 * i]
+        with open(os.path.join(dirs[2], f"frame_{i + 1:04d}.cam"), "wb") as f:
+            f.write(struct.pack("<f", TAG))
+            K.astype(np.float64).tofile(f)
+            np.linalg.inv(c2w)[:3].astype(np.float64).tofile(f)
+
+
+def evaluate_phase(dev, model, text_ctx, uncond_text_ctx):
+    """The evaluation entry point on a synthetic Sintel sequence with the
+    flagship model of the slice phase, at Sintel's 576x256 and the CLI's
+    defaults."""
+    from geo4d_tpu_torch.cli import evaluate as ev
+    from geo4d_tpu_torch.data.datasets import DATASET_RESOLUTION, DATASETS, read_gt_depths
+    from geo4d_tpu_torch.data.images import read_png
+    from geo4d_tpu_torch.data.video import load_image_dir
+    from geo4d_tpu_torch.evals.depth import lad2_align
+
+    n = 20
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = os.path.join(tmp, "sintel"), os.path.join(tmp, "eval")
+        t0 = time.perf_counter()
+        write_sintel(root, n)
+        print(f"evaluate: wrote a 20-frame 1024x436 Sintel sequence in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        t0 = time.perf_counter()
+        frames, _ = load_image_dir(os.path.join(root, "training", "final", "alley_2"),
+                                   DATASET_RESOLUTION["sintel"])
+        print(f"evaluate: PNG decode + Lanczos 1024x436 -> 576x256 of {n} frames "
+              f"{time.perf_counter() - t0:.3f} s (host)", flush=True)
+        args = ev.get_parser().parse_args(["--dataset", "sintel", "--data_root", root,
+                                           "--savedir", out, "--seq_list", "alley_2"])
+        stats = kernel_stats()
+        for st in stats.values():
+            st.reset()
+        t0 = time.perf_counter()
+        res = ev.evaluate(args, model, text_ctx, uncond_text_ctx, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_path_launches("evaluate", stats)
+        seq_dir = os.path.join(out, "alley_2")
+        files = ["_error_log_depth.txt", "_error_log.txt", "_error_log_all.txt",
+                 "time_cost.txt", "alley_2/pred_traj.txt", "alley_2/pred_focal.txt",
+                 "alley_2/pred_intrinsics.txt"]
+        files += [f"alley_2/{f}_{i:04d}.{e}" for i in range(n)
+                  for f, e in (("frame", "npy"), ("conf", "npy"), ("init_conf", "npy"),
+                               ("frame", "png"))]
+        files += [f"alley_2/error_{i}.png" for i in range(n)]
+        missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+        if missing:
+            raise AssertionError(f"evaluate: missing output files {missing[:5]}")
+        err = read_png(os.path.join(seq_dir, "error_0.png"))
+        traj = np.loadtxt(os.path.join(seq_dir, "pred_traj.txt"))
+        if err.shape != SINTEL_HW or traj.shape != (n, 8) or not np.isfinite(traj).all():
+            raise AssertionError(f"evaluate: error map {err.shape}, trajectory {traj.shape}")
+        with open(os.path.join(out, "_error_log_all.txt")) as f:
+            summary = f.read()
+        # lad2 alone at the evaluation's settings, on this sequence's depths
+        # at the ground truth's resolution (all valid pixels as the mask)
+        gt = read_gt_depths(DATASETS["sintel"], root, "alley_2")
+        pred = ev.resize_to_gt(np.stack([np.load(os.path.join(seq_dir, f"frame_{i:04d}.npy"))
+                                         for i in range(n)]), gt.shape[1:], dev)
+        p, g = (torch.from_numpy(a.reshape(-1)).to(dev) for a in (pred, gt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_fit, t_fit = lad2_align(p, g, (g > 0) & (g < 70), lr=1e-2, max_iters=5000)
+        torch.cuda.synchronize()
+        lad2_s = time.perf_counter() - t0
+        del p, g
+    depth = res["depth"][0]
+    if not (np.isfinite(depth["Abs Rel"]) and np.isfinite(depth["δ < 1.25"])):
+        raise AssertionError(f"evaluate: AbsRel {depth['Abs Rel']}, delta {depth['δ < 1.25']}")
+    if res["pose_failed"] or len(res["pose"]) != 1:
+        raise AssertionError(f"evaluate: the pose evaluation failed for {res['pose_failed']}")
+    ate, rpe_t, rpe_r = res["pose"][0]
+    st = res["stages"]["alley_2"]
+    print(f"evaluate: wall {wall:.4f} s; alley_2 at 576x256: load_s {st['load_s']:.4f} "
+          f"(frames: PNG decode + Lanczos; depths, cameras) diffusion_s {st['diffusion_s']:.4f} "
+          f"alignment_s {st['alignment_s']:.4f} resize_s {st['resize_s']:.4f} (bicubic to "
+          f"436x1024, depth and mask) depth_eval_s {st['depth_eval_s']:.4f} (lad2, 5000 Adam "
+          f"steps on {depth['valid_pixels']} valid pixels, then the metrics)", flush=True)
+    print(f"evaluate: lad2 alone (5000 Adam steps on the card, {gt.size} pixels) "
+          f"{lad2_s:.4f} s, s {float(s_fit)!r} t {float(t_fit)!r}", flush=True)
+    print(f"evaluate: lad2 s {st['s']!r} t {st['t']!r} L1 objective {st['l1']!r}; AbsRel "
+          f"{depth['Abs Rel']!r} delta<1.25 {depth['δ < 1.25']!r}; ATE {ate!r} RPE_t {rpe_t!r} "
+          f"RPE_r {rpe_r!r}; PnP failures {st['pnp_failures']} of {n}", flush=True)
+    print("evaluate: _error_log_all.txt " + summary.strip().replace("\n", "; "), flush=True)
+
+
+def resolutions_phase(dev, model, text_ctx):
+    """One window of predict_windows at Bonn's and KITTI's resolutions, every
+    (kernel, shape) it launched checked against its plain version; then
+    every decode_modality layout on random latents at 576x256."""
+    from geo4d_tpu_torch.pipeline.inference import InferenceConfig, WindowPredictor
+
+    stats = kernel_stats()
+    predictor = WindowPredictor(model, InferenceConfig(ddim_steps=1), device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    rng = np.random.default_rng(2)
+    for name, (w, h) in RESOLUTIONS.items():
+        frames = rng.integers(0, 256, size=(1, 16, h, w, 3), dtype=np.uint8)
+        for st in stats.values():
+            st.reset()
+        t0 = time.perf_counter()
+        out = predictor.predict_windows(frames, text_ctx, 24, seed=0)
+        wall = time.perf_counter() - t0
+        check_path_launches(f"resolutions {name} {w}x{h}", stats)
+        for k in ("pts3d", "conf", "inv_depth"):
+            if out[k].shape[:4] != (1, 16, h, w) or not np.isfinite(out[k]).all():
+                raise AssertionError(f"resolutions {name}: {k} {out[k].shape} or non-finite")
+        by_shape = {k: dict(st.by_shape) for k, st in stats.items()}
+        print(f"resolutions {name} {w}x{h}: predict_windows (1 window, 1 DDIM step) "
+              f"{wall:.3f} s", flush=True)
+        with torch.no_grad():
+            for kernel, counts in by_shape.items():
+                for key, n in sorted(counts.items(), key=lambda kv: -kv[1]):
+                    max_abs, max_rel = check_kernel(kernel, key, g, dev)[4:]
+                    print(f"resolutions {name} {kernel:18s} {label(kernel, key):40s} "
+                          f"launches={n} max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
+                          f"repeat_equal=True", flush=True)
+                    torch.cuda.empty_cache()
+    z_gen = torch.Generator(device=dev).manual_seed(3)
+    for modality, c in (("pc_ray_cross_depth", 16), ("pc_ray", 8), ("pc", 4), ("multipc", 12),
+                        ("img_vidpc", 8), ("rgb", 4)):
+        z = torch.randn((1, 16, DECODE_HW[0] // 8, DECODE_HW[1] // 8, c), generator=z_gen,
+                        device=dev)
+        stats["group_norm"].reset()
+        with torch.no_grad():
+            dec = model.decode_modality(z, modality)
+        torch.cuda.synchronize()
+        for k, v in dec.items():
+            if v.shape[:4] != (1, 16, *DECODE_HW) or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"decode_modality {modality}: {k} {tuple(v.shape)} "
+                                     "or non-finite")
+        if stats["group_norm"].launches == 0:
+            raise AssertionError(f"decode_modality {modality}: GroupNorm kernel not launched")
+        print(f"resolutions decode_modality {modality}: "
+              + ", ".join(f"{k} {tuple(v.shape)}" for k, v in dec.items())
+              + f"; group_norm launches {stats['group_norm'].launches}", flush=True)
+        del dec
 
 
 def reference_phase(dev):
@@ -603,6 +813,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
+    sys.modules["PIL"] = None       # import PIL now raises: the port must not need Pillow
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -631,7 +842,11 @@ def main() -> int:
         return 0
     with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         results = kernel_phase(dev)
-    launches, by_shape = slice_phase(dev)
+    launches, by_shape, model, text_ctx, uncond_text_ctx = slice_phase(dev)
+    evaluate_phase(dev, model, text_ctx, uncond_text_ctx)
+    resolutions_phase(dev, model, text_ctx)
+    del model
+    torch.cuda.empty_cache()
     if args.shapes_to:
         with open(args.shapes_to, "w") as f:
             json.dump({name: [[list(key), n] for key, n in rows.items()]
@@ -642,9 +857,11 @@ def main() -> int:
         reference_phase(dev)
     align_reference_phase(dev)
 
-    foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN_ROOTS)
+    foreign = sorted(m for m, mod in sys.modules.items()
+                     if mod is not None and m.split(".")[0] in FOREIGN_ROOTS)
     if foreign:
-        raise AssertionError(f"the port imported JAX, OpenCV or the JAX package: {foreign[:5]}")
+        raise AssertionError(f"the port imported JAX, OpenCV, Pillow or the JAX package: "
+                             f"{foreign[:5]}")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

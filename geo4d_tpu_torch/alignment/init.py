@@ -17,6 +17,9 @@ the device-resident path of geo4d_tpu/alignment/init.py
 
 The predictions stay on their device; only (G,) focal values, the (N, p)
 subsample mask and the (N,) PnP results cross to the host.
+
+`init_from_known_poses` is the JAX package's initialisation from known
+cameras (the reference's init='known_poses').
 """
 
 from __future__ import annotations
@@ -167,3 +170,35 @@ def init_from_group(aligner: GroupAligner, pred_pts, conf, niter_pnp: int = 10,
     if verbose:
         print(f"[init] loss = {float(aligner.loss_fn(aligner.params, False)):.5f}")
     return failures
+
+
+@torch.no_grad()
+def init_from_known_poses(aligner: GroupAligner, poses_c2w, focals, pred_pts) -> None:
+    """Initialise `aligner.params` in place from known cameras: the focal(s)
+    preset and frozen, every frame's pose set from poses_c2w (N, 4, 4), each
+    window placed by its first frame's camera at scale 1, and each frame's
+    depth the z of the window prediction pred_pts (G, S, H, W, 3) that
+    first covers it (clipped to 1e-4). The JAX package passes the window
+    confidences too, and uses them nowhere."""
+    groups = aligner.groups
+    G, dev = aligner.G, aligner.device
+    aligner.preset_focal(np.atleast_1d(focals), requires_grad=False)
+    poses = torch.as_tensor(np.asarray(poses_c2w, np.float32), device=dev)
+    first = poses[torch.as_tensor(groups[:, 0], device=dev)]
+    T = torch.eye(4, device=dev).repeat(G, 1, 1)
+    T[:, :3] = first[:, :3]
+    p = aligner.params
+    p["poses"].copy_(pose_to_params(poses))
+    p["pw_poses"].copy_(torch.cat([pose_to_params(T), torch.zeros(G, 1, device=dev)], -1))
+
+    # the (window, slot) where each frame first appears, in window order
+    seen = {}
+    for g in range(G):
+        for s, i in enumerate(groups[g]):
+            seen.setdefault(int(i), (g, s))
+    z = torch.as_tensor(pred_pts, dtype=torch.float32, device=dev)[..., 2]
+    depth = torch.ones(aligner.N, aligner.P, device=dev)
+    for i, (g, s) in seen.items():
+        depth[i] = torch.clamp(z[g, s].reshape(-1), min=1e-4)
+    depth = torch.nan_to_num(depth, nan=1.0, posinf=1e4, neginf=1e-6)
+    p["log_depth"].copy_(torch.log(torch.clamp(depth, 1e-6, 1e6)))

@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from geo4d_tpu_torch.core.device import default_device
 from geo4d_tpu_torch.core.timing import stage
 from geo4d_tpu_torch.evals.depth import lad_align_irls
 from geo4d_tpu_torch.evals.trajectory import Trajectory, align_trajectory_with_eval
@@ -91,13 +92,6 @@ def _lr_at(step: int, cfg: AlignerConfig) -> float:
     if cfg.schedule == "cosine":
         return cfg.lr_min + (cfg.lr - cfg.lr_min) * 0.5 * (1 + math.cos(math.pi * t))
     return cfg.lr + (cfg.lr_min - cfg.lr) * t
-
-
-def default_device() -> torch.device:
-    """The card, for inputs that name no device; raises where there is none."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the aligner on the CPU")
-    return torch.device("cuda")
 
 
 class GroupAligner:

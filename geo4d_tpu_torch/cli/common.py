@@ -38,6 +38,23 @@ def build_model_from_config(config_path: str, ckpt_path: Optional[str] = None,
     return _materialise(model, ckpt_path, vae_ckpt_path, seed, verbose, device), postprocess
 
 
+def build_model(args, device):
+    """(model, postprocess or None) as a CLI's arguments ask: the tiny preset
+    with random weights (`--tiny`; bf16 on the card, float32 on the CPU,
+    where the kernels' plain versions run), a YAML config (`--config`), or
+    the shipped model, with the checkpoints given."""
+    if args.tiny:
+        from geo4d_tpu_torch.models.presets import init_random_, tiny
+
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+        model = tiny(temporal_length=args.video_length, dtype=dtype, device="meta")
+        return init_random_(model, device, seed=args.seed).eval(), None
+    if args.config:
+        return build_model_from_config(args.config, args.ckpt_path, args.vae_path, args.seed,
+                                       device=device)
+    return build_model_and_params(args.ckpt_path, args.vae_path, args.seed, device=device), None
+
+
 def _materialise(model, ckpt_path, vae_ckpt_path, seed, verbose, device):
     from geo4d_tpu_torch.models.convert import load_checkpoints
     from geo4d_tpu_torch.models.presets import init_random_

@@ -14,7 +14,8 @@ Usage:
 --device cuda (the default) requires a CUDA device and runs the
 hand-written kernels; --device cpu runs their plain versions.
 A video file is decoded by the repo's FFmpeg decoder (native/, built on
-first use); an image directory needs only Pillow.
+first use); a directory of PNG frames needs nothing more (JPEG frames need
+Pillow).
 """
 
 from __future__ import annotations
@@ -77,11 +78,8 @@ def resolve_device(name: str):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    import torch
-
     from geo4d_tpu_torch.alignment.optimizer import AlignerConfig
-    from geo4d_tpu_torch.cli.common import (aligner_config_from_postprocess,
-                                            build_model_and_params, build_model_from_config,
+    from geo4d_tpu_torch.cli.common import (aligner_config_from_postprocess, build_model,
                                             prepare_inference_params)
     from geo4d_tpu_torch.core.timing import StageTimer
     from geo4d_tpu_torch.data.video import load_image_dir, load_video
@@ -103,19 +101,7 @@ def main(argv=None):
                                  max_frames=args.max_video_frames)
     print(f"[infer] {frames.shape[0]} frames @ {fps} fps, {frames.shape[1:3]} on {dev}")
 
-    postprocess = None
-    if args.tiny:
-        from geo4d_tpu_torch.models.presets import init_random_, tiny
-
-        # the kernels take bf16; the CPU runs the plain versions in float32
-        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-        model = init_random_(tiny(temporal_length=args.video_length, dtype=dtype, device="meta"),
-                             dev, seed=args.seed).eval()
-    elif args.config:
-        model, postprocess = build_model_from_config(args.config, args.ckpt_path, args.vae_path,
-                                                     args.seed, device=dev)
-    else:
-        model = build_model_and_params(args.ckpt_path, args.vae_path, args.seed, device=dev)
+    model, postprocess = build_model(args, dev)
     if args.ckpt_path is None:
         print("[infer] WARNING: no checkpoint given — random weights")
     text_ctx, uncond_text_ctx = prepare_inference_params(model, args.prompt, args.bpe_path)

@@ -2,6 +2,9 @@
 device): the port's copy of geo4d_tpu/data/video.py's image-directory loader
 and native video decode, without OpenCV.
 
+PNG frames are read and Lanczos-resized by data/images.py (the same pixels
+as Pillow's, without Pillow); JPEG frames need Pillow to decode them.
+
 Video files go through the repo's C++ FFmpeg decoder (native/video_decoder.cpp,
 built on first use, loaded with ctypes), which resizes at decode time.
 Where it cannot be built, a video file is an error: pass a directory of
@@ -17,6 +20,8 @@ import subprocess
 from typing import List, Tuple
 
 import numpy as np
+
+from geo4d_tpu_torch.data.images import lanczos_resize, read_png
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native")
@@ -81,14 +86,30 @@ def load_image_dir(dir_path: str, video_size: Tuple[int, int],
                    max_frames: int = -1) -> Tuple[np.ndarray, List[str]]:
     """The .png/.jpg/.jpeg files of a directory in name order, each resized
     to video_size (W, H) with Lanczos -> ((T, H, W, 3) uint8, file names)."""
-    from PIL import Image
-
     files = sorted(f for f in glob.glob(os.path.join(dir_path, "*"))
                    if os.path.splitext(f)[1].lower() in (".png", ".jpg", ".jpeg"))
     if max_frames > 0:
         files = files[:max_frames]
     if not files:
         raise FileNotFoundError(f"no images in {dir_path}")
-    frames = [np.asarray(Image.open(f).convert("RGB").resize(tuple(video_size), Image.LANCZOS),
-                         np.uint8) for f in files]
-    return np.stack(frames), files
+    return np.stack([lanczos_resize(_read_frame(f), video_size) for f in files]), files
+
+
+def _read_frame(path: str) -> np.ndarray:
+    """An 8-bit frame file as (H, W, 3) uint8 RGB, as Pillow's convert("RGB")
+    gives it: grayscale repeated, alpha dropped."""
+    if os.path.splitext(path)[1].lower() != ".png":
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(f"{path}: JPEG frames need Pillow, which is not installed; "
+                              "PNG frames do not") from e
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"), np.uint8)
+    img = read_png(path)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: 16-bit frames are not supported")
+    if img.ndim == 2:
+        img = img[..., None]
+    return np.ascontiguousarray(np.repeat(img[..., :1], 3, -1) if img.shape[2] < 3
+                                else img[..., :3])

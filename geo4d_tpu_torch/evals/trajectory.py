@@ -1,7 +1,8 @@
 """Camera-trajectory metrics in numpy, the port's copy of what it needs from
 geo4d_tpu/evals/trajectory.py: ATE and RPE with sim3 alignment
 (`eval_metrics`), the origin-aligned variant the aligner's calibration uses
-(`align_trajectory_with_eval`), and TUM rows for the results directory.
+(`align_trajectory_with_eval`), and TUM rows both ways (the results
+directory, the evaluation's ground truth).
 The definitions are evo's (the reference's dust3r/utils/vo_eval.py); they
 run on small (N, 4, 4) arrays on the host.
 """
@@ -12,6 +13,23 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+
+
+def quat_wxyz_to_rotmat(q: np.ndarray) -> np.ndarray:
+    """(N, 4) wxyz -> (N, 3, 3), normalising q first."""
+    q = q / (np.linalg.norm(q, axis=-1, keepdims=True) + 1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = np.empty(q.shape[:-1] + (3, 3))
+    R[..., 0, 0] = 1 - 2 * (y * y + z * z)
+    R[..., 0, 1] = 2 * (x * y - w * z)
+    R[..., 0, 2] = 2 * (x * z + w * y)
+    R[..., 1, 0] = 2 * (x * y + w * z)
+    R[..., 1, 1] = 1 - 2 * (x * x + z * z)
+    R[..., 1, 2] = 2 * (y * z - w * x)
+    R[..., 2, 0] = 2 * (x * z - w * y)
+    R[..., 2, 1] = 2 * (y * z + w * x)
+    R[..., 2, 2] = 1 - 2 * (x * x + y * y)
+    return R
 
 
 def rotmat_to_quat_wxyz(R: np.ndarray) -> np.ndarray:
@@ -48,6 +66,13 @@ class Trajectory:
     positions: np.ndarray
     rotations: np.ndarray
     timestamps: np.ndarray
+
+    @staticmethod
+    def from_tum(rows: np.ndarray) -> "Trajectory":
+        """(N, 8) TUM rows [t, x, y, z, qx, qy, qz, qw] -> a trajectory."""
+        rows = np.asarray(rows, np.float64)
+        q_wxyz = np.concatenate([rows[:, 7:8], rows[:, 4:7]], axis=-1)
+        return Trajectory(rows[:, 1:4], quat_wxyz_to_rotmat(q_wxyz), rows[:, 0])
 
     @staticmethod
     def from_matrices(poses: np.ndarray) -> "Trajectory":

@@ -1,12 +1,13 @@
 """GeoDiffusion: the towers of the Geo4D latent diffusion model and the
-diffusion-stage methods that tie them together, port of the parts of
-geo4d_tpu/models/diffusion.py that the window predictor runs.
+diffusion methods that tie them together, port of
+geo4d_tpu/models/diffusion.py.
 
-The 16-channel geometry latent is the shipped `pc_ray_cross_depth` layout
-[pointmap 4 | raymap 4 | crossmap 4 | inverse depth 4]; the other
-modality layouts of the JAX package are not ported. Conditioning is
-hybrid: the 4-channel video latent is concatenated on channels and the
-context [text 77 | per-frame image tokens] goes to cross-attention.
+The 16-channel geometry latent of the shipped model is the
+`pc_ray_cross_depth` layout [pointmap 4 | raymap 4 | crossmap 4 | inverse
+depth 4]; `decode_modality` also decodes the reference's other layouts.
+Conditioning is hybrid: the 4-channel video latent is concatenated on
+channels and the context [text 77 | per-frame image tokens] goes to
+cross-attention.
 """
 
 from __future__ import annotations
@@ -95,6 +96,53 @@ class GeoDiffusion(nn.Module):
                          "inv_depth": depth3.mean(dim=-1, keepdim=True)})
         return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
+    def decode_modality(self, samples: torch.Tensor, modality: str = "pc_ray_cross_depth"
+                        ) -> Dict[str, torch.Tensor]:
+        """Decode the latent layouts of the reference's inference branches:
+          pc_ray_cross_depth  [pc 4 | ray 4 | cross 4 | depth 4] (shipped;
+                              `decode_geometry`)
+          pc_ray              [pc 4 | ray 4]
+          pc                  [pc 4]
+          multipc             [pc0 4 | pc1 4 | video 4]
+          img_vidpc           [video 4 | pc 4]
+          rgb                 [video 4]"""
+        if modality == "pc_ray_cross_depth":
+            return self.decode_geometry(samples)
+        if modality == "pc_ray":
+            return {"pointmap_conf": self.decode_pointmap_conf(samples[..., 0:4]),
+                    "raymap": self.decode_first_stage(samples[..., 4:8])}
+        if modality == "pc":
+            return {"pointmap_conf": self.decode_pointmap_conf(samples)}
+        if modality == "multipc":
+            return {"pointmap_conf": self.decode_pointmap_conf(samples[..., 0:4]),
+                    "pointmap_conf_1": self.decode_pointmap_conf(samples[..., 4:8]),
+                    "video": self.decode_first_stage(samples[..., 8:12])}
+        if modality == "img_vidpc":
+            return {"video": self.decode_first_stage(samples[..., 0:4]),
+                    "pointmap_conf": self.decode_pointmap_conf(samples[..., 4:8])}
+        if modality == "rgb":
+            return {"video": self.decode_first_stage(samples)}
+        raise NotImplementedError(f"modality {modality!r}")
+
+    def encode_first_stage_perchannel(self, x: torch.Tensor,
+                                      generator: Optional[torch.Generator] = None
+                                      ) -> torch.Tensor:
+        """(B, T, H, W, C) -> (B, T, h, w, 4 C): each channel repeated to
+        three and encoded on its own, channel by channel."""
+        return torch.cat([self.encode_first_stage(x[..., c:c + 1].expand(*x.shape[:-1], 3),
+                                                  generator)
+                          for c in range(x.shape[-1])], dim=-1)
+
+    def decode_perchannel_conf(self, z: torch.Tensor) -> torch.Tensor:
+        """12-channel latents -> (..., 4): three confidence decodes, each
+        head's RGB reduced to its channel mean, the confidences averaged."""
+        if z.shape[-1] % 3:
+            raise ValueError(f"latent channels {z.shape[-1]} not divisible by 3")
+        per = z.shape[-1] // 3
+        outs = [self.decode_pointmap_conf(z[..., i * per:(i + 1) * per]) for i in range(3)]
+        conf = torch.cat([o[..., 3:] for o in outs], dim=-1).mean(dim=-1, keepdim=True)
+        return torch.cat([o[..., :3].mean(dim=-1, keepdim=True) for o in outs] + [conf], dim=-1)
+
     # ---------------- conditioners ----------------
 
     def clip_tokens_chunked(self, frames: torch.Tensor, chunk: int = 16) -> torch.Tensor:
@@ -151,3 +199,23 @@ class GeoDiffusion(nn.Module):
                            parameterization=self.schedule.parameterization,
                            cfg_scale=cfg_scale, cfg_img=cfg_img,
                            guidance_rescale=guidance_rescale, x_T=x_T, timer=timer)
+
+    # ---------------- q-process (training) ----------------
+
+    def _abar_terms(self, t: torch.Tensor, like: torch.Tensor):
+        shape = (-1,) + (1,) * (like.dim() - 1)
+        sa = torch.as_tensor(self.schedule.sqrt_alphas_cumprod, dtype=like.dtype,
+                             device=like.device)[t].reshape(shape)
+        sb = torch.as_tensor(self.schedule.sqrt_one_minus_alphas_cumprod, dtype=like.dtype,
+                             device=like.device)[t].reshape(shape)
+        return sa, sb
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Forward noising to timesteps t (B,): sqrt(abar) x0 + sqrt(1 - abar) noise."""
+        sa, sb = self._abar_terms(t, x_start)
+        return sa * x_start + sb * noise
+
+    def get_v(self, x: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The v target: sqrt(abar) noise - sqrt(1 - abar) x."""
+        sa, sb = self._abar_terms(t, x)
+        return sa * noise - sb * x

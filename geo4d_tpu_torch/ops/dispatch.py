@@ -11,10 +11,11 @@ Every kernel wrapper in this package asks `use_kernel(x)` before it runs:
 
 Nothing falls back: a failed build or a refused launch raises.
 
-The sources in csrc/ have a plain C interface. At first use they are
-compiled with nvcc for sm_90a into one shared library under
-build/geo4d_tpu_torch/ (named by a hash of the sources and flags, so an
-edited source rebuilds) and loaded with ctypes.
+The sources in csrc/ have a plain C interface. At first use each is
+compiled with nvcc for sm_90a, all at once in parallel processes, and the
+objects are linked into one shared library under build/geo4d_tpu_torch/
+(named by a hash of the sources and flags, so an edited source rebuilds),
+which is loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "geo4d_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
 
 SM_COUNT = 132           # H100 SXM; the wrappers plan with the card's own count
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may use on Hopper
@@ -119,23 +120,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgeo4d_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel processes; raise with the failures'
+    output once all have ended."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless a library built
-    from the same sources and flags exists. Raises if nvcc fails."""
+    """Compile csrc/*.cu (one nvcc process per source, all started at once)
+    and link the shared library, unless a library built from the same
+    sources and flags exists. Raises if nvcc fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        cu = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [os.path.join(objdir, s.stem + ".o") for s in cu]
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", o, str(s)]
+                  for s, o in zip(cu, objs)])
+        tmp = os.path.join(objdir, out.name)
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 

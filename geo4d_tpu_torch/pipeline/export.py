@@ -9,7 +9,7 @@ visualizer reads):
   frame_XXXX.npy       per-frame depth (H, W) float32
   conf_XXXX.npy        per-frame confidence
   init_conf_XXXX.npy   initial confidence
-  frame_XXXX.png       rgb frame
+  frame_XXXX.png       rgb frame (data/images.py's encoder)
   scene.glb            point cloud and camera frusta (binary glTF 2.0)
 
 The aligner is duck-typed: any object with the GroupAligner getters works.
@@ -24,6 +24,8 @@ from typing import Optional
 
 import numpy as np
 
+from geo4d_tpu_torch.data.images import write_png
+
 # points of lower confidence are left out of scene.glb
 CONF_THRESHOLD = 1e-3
 # per-camera edge colours, cycled
@@ -33,9 +35,11 @@ _CAM_PALETTE = np.asarray(
     np.float32)
 
 
-def save_results_dir(out_dir: str, aligner, rgb_frames: Optional[np.ndarray] = None):
+def save_results_dir(out_dir: str, aligner, rgb_frames: Optional[np.ndarray] = None,
+                     save_glb: bool = True):
     """Write the results files of `aligner`; rgb_frames (N, H, W, 3) uint8
-    or [-1, 1] float. Without Pillow the frame PNGs are left out."""
+    or [-1, 1] float. `save_glb=False` leaves out scene.glb (evaluation
+    does)."""
     if rgb_frames is not None and rgb_frames.dtype == np.uint8:
         rgb_frames = (rgb_frames.astype(np.float32) / 255.0 - 0.5) * 2.0
     os.makedirs(out_dir, exist_ok=True)
@@ -51,14 +55,12 @@ def save_results_dir(out_dir: str, aligner, rgb_frames: Optional[np.ndarray] = N
         np.save(os.path.join(out_dir, f"frame_{i:04d}.npy"), depths[i])
         np.save(os.path.join(out_dir, f"conf_{i:04d}.npy"), confs[i])
         np.save(os.path.join(out_dir, f"init_conf_{i:04d}.npy"), init_confs[i])
-    try:
-        from PIL import Image
-    except ImportError:         # the PNGs are for viewing only, as in the reference
-        Image = None
-    if rgb_frames is not None and Image is not None:
+    if rgb_frames is not None:
         for i in range(len(rgb_frames)):
             img = ((rgb_frames[i] + 1) / 2 * 255).clip(0, 255).astype(np.uint8)
-            Image.fromarray(img).save(os.path.join(out_dir, f"frame_{i:04d}.png"))
+            write_png(os.path.join(out_dir, f"frame_{i:04d}.png"), img)
+    if not save_glb:
+        return
 
     pts = aligner.get_pts3d().reshape(-1, 3)
     mask = (confs > CONF_THRESHOLD).reshape(-1)

@@ -8,6 +8,8 @@ axis in one model call. v-parameterization:
   e_t     = sqrt(abar_t) * v + sqrt(1 - abar_t) * x_t
   pred_x0 = sqrt(abar_t) * x_t - sqrt(1 - abar_t) * v
 then the dynamic rescale multiplies pred_x0 by scale_prev / scale.
+`stochastic_encode` and `ddim_encode` run the forward direction (noising,
+deterministic inversion).
 """
 
 from __future__ import annotations
@@ -113,4 +115,37 @@ def ddim_sample(model_fn: Callable[[torch.Tensor, int, int], torch.Tensor], shap
                 noise = torch.randn(x.shape, generator=generator, device=device,
                                     dtype=torch.float32)
                 x = x + float(sigma_t) * noise
+    return x
+
+
+def stochastic_encode(x0: torch.Tensor, step_index: int, tables: DDIMTables,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Noise x0 to DDIM step `step_index`: sqrt(abar) x0 + sqrt(1 - abar) eps,
+    eps drawn from `generator` unless `noise` is given."""
+    a = np.float32(tables.alphas[step_index])
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+    return float(np.sqrt(a)) * x0 + float(np.sqrt(np.float32(1.0) - a)) * noise
+
+
+def ddim_encode(model_fn: Callable[[torch.Tensor, int, int], torch.Tensor], x0: torch.Tensor,
+                tables: DDIMTables, *, parameterization: str = "v",
+                num_steps: Optional[int] = None) -> torch.Tensor:
+    """Deterministic DDIM inversion x0 -> x_T (eta 0): the first `num_steps`
+    (all by default) steps of the table in ascending order, each predicting
+    x0 and the noise at the lower timestep and stepping up to the higher."""
+    f32 = np.float32
+    x = x0
+    for i in range(num_steps or len(tables.timesteps)):
+        a_next, a_cur = f32(tables.alphas[i]), f32(tables.alphas_prev[i])
+        sa, sb = float(np.sqrt(a_cur)), float(np.sqrt(f32(1.0) - a_cur))
+        out = model_fn(x, int(tables.timesteps[i]), 1)
+        if parameterization == "v":
+            e_t = sa * out + sb * x
+            pred_x0 = sa * x - sb * out
+        else:
+            e_t = out
+            pred_x0 = (x - sb * e_t) / sa
+        x = float(np.sqrt(a_next)) * pred_x0 + float(np.sqrt(f32(1.0) - a_next)) * e_t
     return x

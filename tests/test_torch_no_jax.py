@@ -1,8 +1,10 @@
-"""The PyTorch port imports nothing of JAX, Flax, Optax, OpenCV or the JAX
-package `geo4d_tpu`: a fresh interpreter runs the runtime path, `reconstruct`
-on the tiny preset from frames to an aligned scene, then the CLI from an
-image directory to a results directory, and checks what is loaded; it then
-imports every module of the port and checks again."""
+"""The PyTorch port imports nothing of JAX, Flax, Optax, OpenCV, Pillow or
+the JAX package `geo4d_tpu`: a fresh interpreter in which Pillow cannot be
+imported runs the runtime path, `reconstruct` on the tiny preset from frames
+to an aligned scene, then the inference CLI from a directory of PNG frames
+to a results directory and the evaluation CLI on a synthetic Sintel
+sequence, and checks what is loaded; it then imports every module of the
+port and checks again."""
 
 import os
 import subprocess
@@ -11,19 +13,21 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import os, pkgutil, importlib, sys, tempfile
+import os, pkgutil, importlib, struct, sys, tempfile
+sys.modules["PIL"] = None      # import PIL raises: the port must not need it
 import numpy as np
 import torch
-from PIL import Image
 
-FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "cv2", "geo4d_tpu")
+FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "cv2", "geo4d_tpu", "PIL")
 
 def foreign():
-    return sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN_ROOTS)
+    return sorted(m for m, mod in sys.modules.items()
+                  if mod is not None and m.split(".")[0] in FOREIGN_ROOTS)
 
 import geo4d_tpu_torch
 from geo4d_tpu_torch.alignment.optimizer import AlignerConfig
-from geo4d_tpu_torch.cli import infer
+from geo4d_tpu_torch.cli import evaluate, infer
+from geo4d_tpu_torch.data.images import write_png
 from geo4d_tpu_torch.models.presets import init_random_, tiny
 from geo4d_tpu_torch.pipeline.inference import InferenceConfig, reconstruct
 
@@ -37,11 +41,32 @@ assert scene.get_depthmaps().shape == (6, 32, 32) and np.isfinite(scene.get_dept
 with tempfile.TemporaryDirectory() as tmp:
     os.makedirs(os.path.join(tmp, "clip"))
     for i, f in enumerate(frames):
-        Image.fromarray(f).save(os.path.join(tmp, "clip", f"{i:03d}.png"))
+        write_png(os.path.join(tmp, "clip", f"{i:03d}.png"), f)
     infer.main(["--video_path", os.path.join(tmp, "clip"), "--savedir", os.path.join(tmp, "out"),
                 "--tiny", "--device", "cpu", "--height", "32", "--width", "32",
                 "--video_length", "4", "--stride", "2", "--ddim_steps", "1", "--n_iter", "4"])
     assert os.path.exists(os.path.join(tmp, "out", "clip", "clip", "pred_traj.txt"))
+    # a Sintel sequence: PNG frames, .dpt depths, .cam cameras
+    dirs = [os.path.join(tmp, "sintel", "training", d, "alley_2")
+            for d in ("final", "depth", "camdata_left")]
+    K = np.array([[50.0, 0, 16], [0, 50.0, 16], [0, 0, 1]])
+    for i in range(6):
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+        write_png(os.path.join(dirs[0], f"frame_{i:04d}.png"), frames[i])
+        with open(os.path.join(dirs[1], f"frame_{i:04d}.dpt"), "wb") as f:
+            f.write(struct.pack("<fii", 202021.25, 32, 32))
+            np.full((32, 32), 3.0 + i, np.float32).tofile(f)
+        with open(os.path.join(dirs[2], f"frame_{i:04d}.cam"), "wb") as f:
+            f.write(struct.pack("<f", 202021.25))
+            K.tofile(f)
+            np.hstack([np.eye(3), [[0.1 * i], [0.0], [0.0]]]).tofile(f)
+    out = evaluate.main(["--dataset", "sintel", "--data_root", os.path.join(tmp, "sintel"),
+                         "--savedir", os.path.join(tmp, "eval"), "--seq_list", "alley_2",
+                         "--tiny", "--device", "cpu", "--video_length", "4", "--stride", "2",
+                         "--ddim_steps", "1", "--n_iter", "4"])
+    assert out["pose_failed"] == [] and len(out["depth"]) == 1
+    assert os.path.exists(os.path.join(tmp, "eval", "_error_log_all.txt"))
 assert not foreign(), foreign()
 for mod in pkgutil.walk_packages(geo4d_tpu_torch.__path__, "geo4d_tpu_torch."):
     importlib.import_module(mod.name)

@@ -17,6 +17,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from geo4d_tpu.pipeline.export import save_results_dir as jax_save_results_dir
 from geo4d_tpu_torch.alignment.optimizer import AlignerConfig
 from geo4d_tpu_torch.cli import infer
 from geo4d_tpu_torch.core.registry import build_from_yaml
+from geo4d_tpu_torch.data.images import read_png
 from geo4d_tpu_torch.models.convert import CKPT_PREFIXES, TOWER_MODULES, load_checkpoints
 from geo4d_tpu_torch.models.presets import init_random_, tiny
 from geo4d_tpu_torch.nn.clip import CLIPTextEncoder
@@ -120,14 +122,18 @@ def test_reconstruct_writes_results_contract(tmp_path):
     save_results_dir(out_dir, scene, rgb_frames=frames)
     check_contract(out_dir, 8)
     # the JAX package's exporter, duck-typed on the port's aligner, writes
-    # the same bytes
+    # the same bytes; the frame PNGs (the port's own encoder, Pillow's in
+    # the JAX package) decode to the same pixels
     jax_dir = str(tmp_path / "jax")
     jax_save_results_dir(jax_dir, scene, rgb_frames=frames)
     assert sorted(os.listdir(out_dir)) == sorted(os.listdir(jax_dir))
     for fname in os.listdir(out_dir):
-        with open(os.path.join(out_dir, fname), "rb") as a, open(os.path.join(jax_dir, fname),
-                                                                  "rb") as b:
-            assert a.read() == b.read(), fname
+        a, b = os.path.join(out_dir, fname), os.path.join(jax_dir, fname)
+        if fname.endswith(".png"):
+            np.testing.assert_array_equal(read_png(a), np.asarray(Image.open(b)), fname)
+            continue
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read(), fname
 
 
 def test_cli_tiny_on_cpu_writes_results_contract(tmp_path):

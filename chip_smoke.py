@@ -46,11 +46,35 @@ the final `ok` line):
    delta < 1.25, that the pose evaluation did not take its failure branch,
    that every kernel launched and no plain version ran on a CUDA tensor;
    prints the stage times.
+   The sequence also gets .flo optical flow (the rigid flow of its depth
+   and cameras, plus a moving patch): `sintel_get_dynamics` labels it on the
+   host, `compute_dynamic_masks` on the card; both must find the patch, and
+   `save_results_dir(..., dynamic_masks=...)` with the slice's scene must
+   write enlarged_dynamic_mask_<i>.png with the masks' pixels.
 9. resolutions: one window of `predict_windows` (1 DDIM step, full width)
    at Bonn's 512x384 and KITTI's 640x192; every (kernel, shape) it launched
    is checked against its plain version and a second launch (not timed);
    then every `decode_modality` layout once on a 16-frame window of random
    latents at 576x256.
+10. attention_options (with the slice's model): one 1-step 16-frame window
+   at 576x256 with the plain UNet, then with relative-position temporal
+   attention, then with causal temporal attention (each UNet carries the
+   plain one's weights; the relative-position tables are seeded); outputs
+   finite and unlike the plain ones; K1 and K2 launched, K3 not at all (its
+   gate excludes both options); the UNet step of each timed.
+11. inputs: probes pkg-config for FFmpeg and g++; decodes the committed
+   JPEG fixtures (tests/fixtures/torch_inputs) with data/jpeg.py, bit for
+   bit against the committed Pillow pixels, and times the decode; runs
+   `cli/infer.main` at 576x256 (flagship, random weights, --n_iter 50) on
+   a 20-file JPEG directory made from the fixtures and checks its results
+   directory and that K1-K3 launched. Where FFmpeg is found: decodes the
+   committed clip at its own size against the committed decode (at most
+   VIDEO_LSB apart) and runs `cli/infer.main` on it the same way; where it
+   is not, `load_video` must raise the error that names frame directories.
+   The reference phase (6) also runs with each attention option on, and
+   align_reference (7) also runs the host init chain (numpy inputs) and the
+   aligner with its rigid-flow term (weight 0.1, target flows from the
+   ground truth), each on the card against the CPU.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -69,6 +93,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import struct
 import subprocess
@@ -100,6 +125,20 @@ REF_REL_L2 = 1e-2
 # relative to frame 0 (the world frame is a free gauge of the objective)
 ALIGN_ROT_DEG = 0.1
 ALIGN_REL = 1e-3
+# with the rigid-flow term on: the term (exact target flows at the true focal)
+# and the point-map term (noisy predictions) pull the focal apart, 114 against
+# 123 px, and float32 rounding moves the run along that valley (measured card
+# vs CPU: focal 1.0e-2, depth 1.1e-2); the term itself, value and gradient at
+# the same parameters, is held at FLOW_TERM_REL in float64 (in float32 its
+# pose and focal gradients, sums over ~175k pixels that cancel, came out
+# 1.2e-4 apart: the order of the sums)
+ALIGN_FLOW_REL = 2e-2
+FLOW_TERM_REL = 1e-9
+# the committed clip decoded by this machine's FFmpeg against the decode committed
+# beside it (FFmpeg versions may round the colour conversion differently)
+VIDEO_LSB = 2
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                        "torch_inputs")
 # nothing of these may be loaded by the end of the run; Pillow is also made
 # unimportable before the port is imported
 FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "cv2", "geo4d_tpu", "PIL")
@@ -521,7 +560,7 @@ def slice_phase(dev):
     sums = {k: float(v.double().sum()) for k, v in out.items()}
     print(f"slice: prediction sums {json.dumps(sums)}; the warm-up's (same seed) "
           f"{'equal' if sums == warm_sums else json.dumps(warm_sums)}", flush=True)
-    return launches, by_shape, model, text_ctx, uncond_text_ctx
+    return launches, by_shape, model, text_ctx, uncond_text_ctx, scene
 
 
 def kernel_stats():
@@ -555,15 +594,23 @@ RESOLUTIONS = {"bonn": (512, 384), "kitti": (640, 192)}
 DECODE_HW = (256, 576)
 
 
+# the moving patch of the synthetic Sintel flow: rows, columns, added flow (px)
+PATCH = (slice(150, 250), slice(300, 500), 20.0)
+
+
 def write_sintel(root, n=20, seq="alley_2"):
     """A Sintel sequence in the dataset's layout: n PNG frames (a textured
-    image panning sideways), .dpt depth maps (a slanted plane with 5% noise)
-    and .cam files (fixed intrinsics; the camera moves along x and turns
-    slowly), all at the dataset's 1024x436."""
+    image panning sideways), .dpt depth maps (a slanted plane with 5% noise),
+    .cam files (fixed intrinsics; the camera moves along x and turns
+    slowly) and n - 1 .flo optical flows (the rigid flow of each frame's
+    depth and cameras, computed in float64, with PATCH moved by 20 px more
+    in x and y), all at the dataset's 1024x436."""
     from geo4d_tpu_torch.data.images import write_png
+    from geo4d_tpu_torch.geometry.warp import depth_based_flow
 
     h, w = SINTEL_HW
-    dirs = [os.path.join(root, "training", d, seq) for d in ("final", "depth", "camdata_left")]
+    dirs = [os.path.join(root, "training", d, seq)
+            for d in ("final", "depth", "camdata_left", "flow")]
     for d in dirs:
         os.makedirs(d)
     rng = np.random.default_rng(0)
@@ -571,6 +618,7 @@ def write_sintel(root, n=20, seq="alley_2"):
     texture = rng.integers(0, 256, (h // 4, w // 4 + n * 4, 3), dtype=np.uint8)
     texture = np.repeat(np.repeat(texture, 4, 0), 4, 1)
     K = np.array([[600.0, 0, w / 2], [0, 600.0, h / 2], [0, 0, 1]])
+    depths, poses = [], []
     for i in range(n):
         write_png(os.path.join(dirs[0], f"frame_{i + 1:04d}.png"),
                   np.ascontiguousarray(texture[:, 8 * i:8 * i + w]))
@@ -578,6 +626,7 @@ def write_sintel(root, n=20, seq="alley_2"):
         with open(os.path.join(dirs[1], f"frame_{i + 1:04d}.dpt"), "wb") as f:
             f.write(struct.pack("<fii", TAG, w, h))
             depth.astype(np.float32).tofile(f)
+        depths.append(depth.astype(np.float32))
         a = 0.01 * i
         c2w = np.eye(4)
         c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
@@ -586,12 +635,88 @@ def write_sintel(root, n=20, seq="alley_2"):
             f.write(struct.pack("<f", TAG))
             K.astype(np.float64).tofile(f)
             np.linalg.inv(c2w)[:3].astype(np.float64).tofile(f)
+        poses.append(c2w)
+    rows, cols, shift = PATCH
+    for i in range(n - 1):
+        flow, _ = depth_based_flow(torch.from_numpy(depths[i]).double(),
+                                   torch.from_numpy(poses[i]), torch.from_numpy(poses[i + 1]),
+                                   torch.from_numpy(K))
+        flow = flow.numpy()
+        flow[rows, cols] += shift
+        with open(os.path.join(dirs[3], f"frame_{i + 1:04d}.flo"), "wb") as f:
+            f.write(struct.pack("<fii", TAG, w, h))
+            flow.astype(np.float32).tofile(f)
 
 
-def evaluate_phase(dev, model, text_ctx, uncond_text_ctx):
+def dynamic_masks_check(dev, root, scene, n):
+    """Sintel's dynamic labels of the synthetic sequence (host,
+    `sintel_get_dynamics`) and the dynamic masks of its GT depth, cameras and
+    flow on the card (`compute_dynamic_masks`): both must find the moving
+    patch. The card's masks, cut to the slice's 256x576 (nearest) and the
+    last frame given the last pair's mask, go through
+    `save_results_dir(..., dynamic_masks=)` with the slice's scene."""
+    from geo4d_tpu_torch.data.datasets import read_dpt, read_sintel_cam
+    from geo4d_tpu_torch.data.images import read_png
+    from geo4d_tpu_torch.data.preprocess import compute_dynamic_masks, read_flo, \
+        sintel_get_dynamics
+    from geo4d_tpu_torch.pipeline.export import save_results_dir
+
+    base, seq = os.path.join(root, "training"), "alley_2"
+    t0 = time.perf_counter()
+    labels = sintel_get_dynamics(base, seq)
+    labels_s = time.perf_counter() - t0
+    rows, cols, _ = PATCH
+    inside = np.zeros(SINTEL_HW, bool)
+    inside[rows, cols] = True
+
+    def fractions(mask):
+        return float(mask[..., inside].mean()), float(mask[..., ~inside].mean())
+
+    lab = np.stack([read_png(p) > 0 for p in labels])
+    names = sorted(f for f in os.listdir(os.path.join(base, "depth", seq)))
+    depths = np.stack([read_dpt(os.path.join(base, "depth", seq, f)) for f in names])
+    cams = [read_sintel_cam(os.path.join(base, "camdata_left", seq, f.replace(".dpt", ".cam")))
+            for f in names]
+    poses = np.stack([np.linalg.inv(np.vstack([E, [0, 0, 0, 1]])) for _, E in cams])
+    flows = np.stack([read_flo(os.path.join(base, "flow", seq, f.replace(".dpt", ".flo")))
+                      for f in names[:-1]])
+    args = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+            for a in (flows, depths, poses, cams[0][0])]
+    compute_dynamic_masks(*args)                                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = compute_dynamic_masks(*args)
+    torch.cuda.synchronize()
+    masks_ms = (time.perf_counter() - t0) * 1e3
+    masks = masks.cpu().numpy()
+    f_lab, f_mask = fractions(lab), fractions(masks)
+    print(f"evaluate: sintel_get_dynamics {len(labels)} labels at 1024x436 in {labels_s:.3f} s "
+          f"(host, float64): dynamic share inside the moving patch {f_lab[0]:.4f}, outside "
+          f"{f_lab[1]:.6f}; compute_dynamic_masks on the card {masks_ms:.3f} ms for "
+          f"{len(masks)} pairs: inside {f_mask[0]:.4f}, outside {f_mask[1]:.6f}", flush=True)
+    if len(labels) != n - 1 or not (f_lab[0] > 0.99 and f_lab[1] < 0.01
+                                    and f_mask[0] > 0.99 and f_mask[1] < 0.01):
+        raise AssertionError("evaluate: the dynamic labels or masks miss the moving patch")
+    h, w = scene.H, scene.W
+    yi = np.arange(h) * SINTEL_HW[0] // h
+    xi = np.arange(w) * SINTEL_HW[1] // w
+    small = masks[:, yi][:, :, xi]
+    small = np.concatenate([small, small[-1:]])
+    with tempfile.TemporaryDirectory() as tmp:
+        save_results_dir(tmp, scene, save_glb=False, dynamic_masks=small)
+        for i in range(n):
+            png = read_png(os.path.join(tmp, f"enlarged_dynamic_mask_{i}.png"))
+            if not np.array_equal(png, small[i].astype(np.uint8) * 255):
+                raise AssertionError(f"evaluate: enlarged_dynamic_mask_{i}.png differs from "
+                                     "its mask")
+    print(f"evaluate: {n} enlarged_dynamic_mask_<i>.png files written with the slice's scene "
+          f"at {h}x{w} and read back equal", flush=True)
+
+
+def evaluate_phase(dev, model, text_ctx, uncond_text_ctx, scene):
     """The evaluation entry point on a synthetic Sintel sequence with the
     flagship model of the slice phase, at Sintel's 576x256 and the CLI's
-    defaults."""
+    defaults; then the sequence's dynamic masks (`dynamic_masks_check`)."""
     from geo4d_tpu_torch.cli import evaluate as ev
     from geo4d_tpu_torch.data.datasets import DATASET_RESOLUTION, DATASETS, read_gt_depths
     from geo4d_tpu_torch.data.images import read_png
@@ -649,6 +774,7 @@ def evaluate_phase(dev, model, text_ctx, uncond_text_ctx):
         torch.cuda.synchronize()
         lad2_s = time.perf_counter() - t0
         del p, g
+        dynamic_masks_check(dev, root, scene, n)
     depth = res["depth"][0]
     if not (np.isfinite(depth["Abs Rel"]) and np.isfinite(depth["δ < 1.25"])):
         raise AssertionError(f"evaluate: AbsRel {depth['Abs Rel']}, delta {depth['δ < 1.25']}")
@@ -722,19 +848,198 @@ def resolutions_phase(dev, model, text_ctx):
         del dec
 
 
-def reference_phase(dev):
+ATTENTION_OPTIONS = {"plain": {}, "relative_position": dict(use_relative_position=True),
+                     "causal": dict(use_causal_attention=True)}
+
+
+def attention_options_phase(dev, model, text_ctx):
+    """One 1-step 16-frame window at 576x256 through the slice's model with
+    the plain UNet and with each temporal-attention option (a UNet of that
+    option carrying the plain one's weights; the relative-position tables
+    seeded); then the UNet step of each, timed."""
+    from geo4d_tpu_torch.models.unet3d import UNet3D
+    from geo4d_tpu_torch.pipeline.inference import InferenceConfig, WindowPredictor
+
+    stats = kernel_stats()
+    plain_unet = model.unet
+    state = plain_unet.state_dict()
+    frames = np.random.default_rng(4).integers(0, 256, size=(1, 16, 256, 576, 3), dtype=np.uint8)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((1, 16, 32, 72, 20), generator=g, device=dev)
+    ctx = torch.randn((1, 77 + 16 * 16, 1024), generator=g, device=dev).to(torch.bfloat16)
+    ts, fs = torch.tensor([500], device=dev), torch.tensor([24], device=dev)
+    outs, step_ms = {}, {}
+    for name, opts in ATTENTION_OPTIONS.items():
+        if opts:
+            with torch.device("meta"):
+                unet = UNet3D(dtype=torch.bfloat16, **opts)
+            unet.to_empty(device=dev)
+            missing, unexpected = unet.load_state_dict(state, strict=False)
+            if unexpected or any(not k.endswith("embeddings_table") for k in missing) \
+                    or bool(missing) != ("use_relative_position" in opts):
+                raise AssertionError(f"attention_options {name}: the plain UNet's weights do not "
+                                     f"fit ({len(missing)} missing, {len(unexpected)} unexpected)")
+            for k in missing:
+                unet.get_parameter(k).normal_(0.0, 0.02, generator=g)
+            model.unet = unet.eval()
+        for st in stats.values():
+            st.reset()
+        t0 = time.perf_counter()
+        outs[name] = WindowPredictor(model, InferenceConfig(ddim_steps=1), device=dev
+                                     ).predict_windows(frames, text_ctx, 24, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_path_launches(f"attention_options {name}", stats,
+                                       need=KERNELS if not opts else
+                                       ("group_norm", "flash_attention"))
+        if opts and launches["temporal_attention"]:
+            raise AssertionError(f"attention_options {name}: K3 launched "
+                                 f"{launches['temporal_attention']} times; its gate excludes "
+                                 "the option")
+        for k in ("pts3d", "conf", "inv_depth"):
+            if not np.isfinite(outs[name][k]).all():
+                raise AssertionError(f"attention_options {name}: non-finite {k}")
+        step_ms[name] = median_ms(lambda: model.unet(x, ts, ctx, fs), reps=5, warmup=2)
+        print(f"attention_options {name}: 1-step window {wall:.3f} s (first call); UNet step "
+              f"(1 x 16 frames at 32x72 latents) {step_ms[name]:.3f} ms; K3 launches "
+              f"{launches['temporal_attention']}", flush=True)
+        model.unet = plain_unet
+    for name in ("relative_position", "causal"):
+        if all(np.array_equal(outs[name][k], outs["plain"][k]) for k in ("pts3d", "inv_depth")):
+            raise AssertionError(f"attention_options {name}: the outputs equal the plain ones")
+        rel = float(np.linalg.norm(outs[name]["pts3d"] - outs["plain"]["pts3d"])
+                    / np.linalg.norm(outs["plain"]["pts3d"]))
+        print(f"attention_options {name}: pts3d relative L2 from the plain UNet's {rel:.3e}; "
+              f"step {step_ms[name] / step_ms['plain']:.3f}x the plain one", flush=True)
+
+
+def ffmpeg_probe():
+    """Prints what pkg-config finds of FFmpeg and g++'s version; returns
+    whether FFmpeg's development libraries are there."""
+    from geo4d_tpu_torch.data.video import FFMPEG_LIBS
+
+    try:
+        p = subprocess.run(["pkg-config", "--modversion", *FFMPEG_LIBS], capture_output=True,
+                           text=True)
+        found = p.returncode == 0
+        ffmpeg = ("found, versions " + " ".join(p.stdout.split()) if found
+                  else f"not found (rc {p.returncode}: {p.stderr.strip()[:300]})")
+    except FileNotFoundError:
+        found, ffmpeg = False, "not found (pkg-config is not installed)"
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    print(f"inputs: probe: pkg-config {' '.join(FFMPEG_LIBS)}: {ffmpeg}; g++: "
+          f"{gxx.stdout.splitlines()[0] if gxx.returncode == 0 else 'absent'}", flush=True)
+    return found
+
+
+def check_results_dir(out_dir, n, h, w, what):
+    traj = np.loadtxt(os.path.join(out_dir, "pred_traj.txt"))
+    K = np.loadtxt(os.path.join(out_dir, "pred_intrinsics.txt"))
+    depths = np.stack([np.load(os.path.join(out_dir, f"frame_{i:04d}.npy")) for i in range(n)])
+    missing = [f for i in range(n) for f in (f"conf_{i:04d}.npy", f"frame_{i:04d}.png")
+               if not os.path.exists(os.path.join(out_dir, f))]
+    if traj.shape != (n, 8) or K.shape != (n, 9) or depths.shape != (n, h, w) or missing:
+        raise AssertionError(f"{what}: results files: traj {traj.shape}, intrinsics {K.shape}, "
+                             f"depths {depths.shape}, missing {missing[:3]}")
+    if not (np.isfinite(traj).all() and np.isfinite(K).all() and np.isfinite(depths).all()):
+        raise AssertionError(f"{what}: results files hold non-finite values")
+
+
+def infer_cli(dev, video_path, savedir, what):
+    """`cli/infer.main` at 576x256 on the flagship with random weights and 50
+    aligner iterations; checks the results directory of its 20 frames and
+    that K1-K3 launched. Returns the wall seconds."""
+    from geo4d_tpu_torch.cli import infer
+
+    stats = kernel_stats()
+    for st in stats.values():
+        st.reset()
+    t0 = time.perf_counter()
+    infer.main(["--video_path", video_path, "--savedir", savedir, "--height", "256",
+                "--width", "576", "--n_iter", "50"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_path_launches(what, stats)
+    seq = os.path.splitext(os.path.basename(video_path.rstrip("/")))[0]
+    check_results_dir(os.path.join(savedir, seq, seq), 20, 256, 576, what)
+    print(f"{what}: cli/infer.main wall {wall:.3f} s (model build with random weights, text "
+          "context, frame load, reconstruct, results directory)", flush=True)
+    return wall
+
+
+def inputs_phase(dev):
+    """Frame and video input on the card: the FFmpeg probe, the JPEG fixtures
+    against Pillow's committed pixels, cli/infer on a JPEG directory, and on
+    the committed clip where FFmpeg is present."""
+    from geo4d_tpu_torch.data import jpeg
+    from geo4d_tpu_torch.data.video import load_video
+
+    have_ffmpeg = ffmpeg_probe()
+    t0 = time.perf_counter()
+    jpeg.build()
+    print(f"inputs: JPEG decoder built with g++ in {time.perf_counter() - t0:.2f} s", flush=True)
+    pixels = np.load(os.path.join(FIXTURES, "jpeg_pixels.npz"))
+    for name in pixels.files:
+        path = os.path.join(FIXTURES, name)
+        got = jpeg.read_jpeg(path)
+        if not np.array_equal(got, pixels[name]):
+            raise AssertionError(f"inputs: {name} decodes unlike Pillow's committed pixels")
+        with open(path, "rb") as f:
+            data = f.read()
+        reps = 200
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            jpeg.decode_jpeg(data)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        print(f"inputs: {name} ({got.shape}) equals Pillow's pixels; decode {ms:.4f} ms per "
+              "frame (host)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_dir = os.path.join(tmp, "jpeg_clip")
+        os.makedirs(clip_dir)
+        names = sorted(f for f in os.listdir(FIXTURES) if f.endswith(".jpg"))
+        for i in range(20):
+            shutil.copy(os.path.join(FIXTURES, names[i % len(names)]),
+                        os.path.join(clip_dir, f"{i:05d}.jpg"))
+        infer_cli(dev, clip_dir, os.path.join(tmp, "out"), "inputs jpeg")
+        clip = os.path.join(FIXTURES, "clip.mp4")
+        if not have_ffmpeg:
+            try:
+                load_video(clip, 1, (128, 288))
+            except RuntimeError as e:
+                if "PNG or JPEG" not in str(e):
+                    raise AssertionError(f"inputs: the error of a missing FFmpeg does not name "
+                                         f"frame directories: {e}") from e
+                print(f"inputs: the card has no FFmpeg; load_video raises: {e}", flush=True)
+                return
+            raise AssertionError("inputs: pkg-config finds no FFmpeg, yet load_video decoded")
+        ref = np.load(os.path.join(FIXTURES, "clip_decode.npz"))
+        t0 = time.perf_counter()
+        frames, fps = load_video(clip, 1, (128, 288))
+        decode_s = time.perf_counter() - t0
+        diff = np.abs(frames[ref["index"]].astype(int) - ref["frames"].astype(int))
+        print(f"inputs: clip.mp4 decoded ({frames.shape}, {fps} fps) in {decode_s:.3f} s "
+              f"(native decoder built at first use): frames {ref['index'].tolist()} against "
+              f"the committed decode: max {int(diff.max())} LSB, {float((diff > 0).mean()):.4%} "
+              f"of values differ (limit {VIDEO_LSB} LSB)", flush=True)
+        if frames.shape != (20, 128, 288, 3) or diff.max() > VIDEO_LSB:
+            raise AssertionError("inputs: the clip decodes unlike the committed decode")
+        shutil.copy(clip, os.path.join(tmp, "clip.mp4"))
+        infer_cli(dev, os.path.join(tmp, "clip.mp4"), os.path.join(tmp, "out"), "inputs video")
+
+
+def reference_phase(dev, name="plain", **unet_options):
     """Tiny preset, same weights and noise: bf16 on the card (kernels) vs
-    float32 on the CPU (plain versions)."""
+    float32 on the CPU (plain versions); `unet_options` go to its UNet."""
     from geo4d_tpu_torch.models.presets import tiny
     from geo4d_tpu_torch.pipeline.inference import InferenceConfig, WindowPredictor
 
     cfg = InferenceConfig(window=4, stride=2, ddim_steps=2, sample_posterior=False)
-    ref = tiny(temporal_length=4, dtype=torch.float32, device="cpu")
+    ref = tiny(temporal_length=4, dtype=torch.float32, device="cpu", **unet_options)
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for p in ref.parameters():
             p.normal_(0.0, 0.05, generator=gen)
-    card = tiny(temporal_length=4, dtype=torch.bfloat16, device="meta")
+    card = tiny(temporal_length=4, dtype=torch.bfloat16, device="meta", **unet_options)
     card.to_empty(device=dev)
     card.load_state_dict(ref.state_dict())
     rng = np.random.default_rng(1)
@@ -744,38 +1049,21 @@ def reference_phase(dev):
     want = WindowPredictor(ref, cfg).predict_windows(frames, text_ctx, 24, x_T=x_T)
     got = WindowPredictor(card, cfg, device=dev).predict_windows(frames, text_ctx, 24, x_T=x_T)
     again = WindowPredictor(card, cfg, device=dev).predict_windows(frames, text_ctx, 24, x_T=x_T)
-    print(f"reference: a second card run equals the first: "
+    print(f"reference {name}: a second card run equals the first: "
           f"{all(np.array_equal(got[k], again[k]) for k in got)}")
     for k in ("pts3d", "conf", "inv_depth"):
         rel = float(np.linalg.norm(got[k] - want[k]) / max(np.linalg.norm(want[k]), 1e-12))
-        print(f"reference: {k} relative L2 error {rel:.3e} (limit {REF_REL_L2})")
+        print(f"reference {name}: {k} relative L2 error {rel:.3e} (limit {REF_REL_L2})")
         if not rel <= REF_REL_L2:
-            raise AssertionError(f"reference: {k} relative L2 error {rel:.3e} > {REF_REL_L2}")
+            raise AssertionError(f"reference {name}: {k} relative L2 error {rel:.3e} > "
+                                 f"{REF_REL_L2}")
     agree = float((got["valid"] == want["valid"]).mean())
-    print(f"reference: valid masks agree on {agree:.4f} of points", flush=True)
+    print(f"reference {name}: valid masks agree on {agree:.4f} of points", flush=True)
 
 
-def align_reference_phase(dev):
-    """The aligner (default config: 500 iterations, calibration at 150) on
-    the card and on the CPU, both float32, same inputs and seeds."""
-    from geo4d_tpu_torch.alignment.optimizer import AlignerConfig
-    from geo4d_tpu_torch.evals.trajectory import Trajectory, eval_metrics
-    from geo4d_tpu_torch.pipeline.inference import align_predictions
-    from geo4d_tpu_torch.tools.profile_aligner import synthetic_scene
-
-    sc = synthetic_scene()
-    runs = {}
-    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        preds = {k: torch.from_numpy(v).to(device) for k, v in sc["preds"].items()}
-        t0 = time.perf_counter()
-        al = align_predictions(sc["groups"], preds, sc["hw"], AlignerConfig())
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        print(f"align_reference: {name} {time.perf_counter() - t0:.3f} s, final loss "
-              f"{al.final_loss:.6f}, PnP failures {al.pnp_failures}", flush=True)
-        runs[name] = al
-    card, cpu = runs["cuda"], runs["cpu"]
-
+def compare_card_cpu(what, card, cpu, limit=ALIGN_REL):
+    """Card against CPU after the same aligner run: rotations (relative to
+    frame 0), focal and depth maps at ALIGN_ROT_DEG / `limit`."""
     def rel_to_first(P):
         return np.linalg.inv(P[0])[None] @ P
 
@@ -788,10 +1076,15 @@ def align_reference_phase(dev):
     focal_rel = abs(float(card.get_focals()[0]) / float(cpu.get_focals()[0]) - 1)
     da, db = card.get_depthmaps(), cpu.get_depthmaps()
     depth_rel = float(np.linalg.norm(da - db) / np.linalg.norm(db))
-    print(f"align_reference: card vs CPU: rotation {rot:.4f} deg (limit {ALIGN_ROT_DEG}), "
-          f"focal {focal_rel:.3e}, depth relative L2 {depth_rel:.3e} (limit {ALIGN_REL})")
-    if not (rot <= ALIGN_ROT_DEG and focal_rel <= ALIGN_REL and depth_rel <= ALIGN_REL):
-        raise AssertionError("align_reference: the card's aligner disagrees with the CPU's")
+    print(f"{what}: card vs CPU: rotation {rot:.4f} deg (limit {ALIGN_ROT_DEG}), "
+          f"focal {focal_rel:.3e}, depth relative L2 {depth_rel:.3e} (limit {limit})")
+    if not (rot <= ALIGN_ROT_DEG and focal_rel <= limit and depth_rel <= limit):
+        raise AssertionError(f"{what}: the card's aligner disagrees with the CPU's")
+
+
+def check_ground_truth(what, runs, sc):
+    from geo4d_tpu_torch.evals.trajectory import Trajectory, eval_metrics
+
     for name, al in runs.items():
         ate = eval_metrics(Trajectory.from_matrices(al.get_im_poses()),
                            Trajectory.from_matrices(sc["poses"]))[0]
@@ -799,10 +1092,116 @@ def align_reference_phase(dev):
         s = np.median(sc["depths"]) / np.median(d)
         abs_rel = float(np.mean(np.abs(s * d - sc["depths"]) / sc["depths"]))
         f = float(al.get_focals()[0])
-        print(f"align_reference: {name} vs ground truth: focal {f:.3f} (true {sc['focal']}), "
+        print(f"{what}: {name} vs ground truth: focal {f:.3f} (true {sc['focal']}), "
               f"ATE {ate:.5f}, depth AbsRel {abs_rel:.5f}", flush=True)
         if not (abs(f / sc["focal"] - 1) < 0.2 and ate < 0.05 and abs_rel < 0.05):
-            raise AssertionError(f"align_reference: {name} misses the ground-truth bounds")
+            raise AssertionError(f"{what}: {name} misses the ground-truth bounds")
+
+
+def align_reference_phase(dev):
+    """The aligner (default config: 500 iterations, calibration at 150) on
+    the card and on the CPU, both float32, same inputs and seeds: as the
+    pipeline runs it (device init path), from numpy inputs through the host
+    init chain, and with the rigid-flow term on (weight 0.1, target flows
+    from the ground truth)."""
+    from geo4d_tpu_torch.alignment.init import init_from_group
+    from geo4d_tpu_torch.alignment.optimizer import AlignerConfig, GroupAligner
+    from geo4d_tpu_torch.core.timing import StageTimer
+    from geo4d_tpu_torch.geometry.warp import depth_based_flow
+    from geo4d_tpu_torch.pipeline.inference import align_predictions
+    from geo4d_tpu_torch.tools.profile_aligner import synthetic_scene
+
+    sc = synthetic_scene()
+    cpu_dev = torch.device("cpu")
+    devices = (("cuda", dev), ("cpu", cpu_dev))
+
+    def per_iter_ms(timer, al):
+        sec = timer.seconds
+        return (sec.get("align_phase1", 0.0) + sec.get("align_phase2", 0.0)) * 1e3 / al.cfg.n_iter
+
+    runs, card_ms = {}, {}
+    for name, device in devices:
+        preds = {k: torch.from_numpy(v).to(device) for k, v in sc["preds"].items()}
+        timer = StageTimer(device)
+        t0 = time.perf_counter()
+        al = align_predictions(sc["groups"], preds, sc["hw"], AlignerConfig(), timer=timer)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            card_ms["plain"] = per_iter_ms(timer, al)
+        print(f"align_reference: {name} {time.perf_counter() - t0:.3f} s, final loss "
+              f"{al.final_loss:.6f}, PnP failures {al.pnp_failures}", flush=True)
+        runs[name] = al
+    compare_card_cpu("align_reference", runs["cuda"], runs["cpu"])
+    check_ground_truth("align_reference", runs, sc)
+
+    # numpy inputs: the host init chain, on the aligner's device
+    p = sc["preds"]
+    runs = {}
+    for name, device in devices:
+        timer = StageTimer(device)
+        t0 = time.perf_counter()
+        al = GroupAligner(sc["groups"], p["pts3d"], p["conf"], sc["hw"], invdepth=p["inv_depth"],
+                          trajs=p["traj"], config=AlignerConfig(), device=device)
+        init_from_group(al, p["pts3d"], p["conf"], timer=timer)
+        init_s = time.perf_counter() - t0
+        al.run(timer=timer)
+        print(f"align_reference host init: {name} {time.perf_counter() - t0:.3f} s (init "
+              f"{init_s:.3f} s: align_init {timer.seconds.get('align_init', 0.0):.3f}, align_pnp "
+              f"{timer.seconds.get('align_pnp', 0.0):.3f}), final loss {al.final_loss:.6f}, "
+              f"PnP failures {al.pnp_failures}", flush=True)
+        runs[name] = al
+    compare_card_cpu("align_reference host init", runs["cuda"], runs["cpu"])
+    check_ground_truth("align_reference host init", runs, sc)
+
+    # the rigid-flow term, target flows from the ground truth
+    h, w = sc["hw"]
+    K = torch.tensor([[sc["focal"], 0, w / 2], [0, sc["focal"], h / 2], [0, 0, 1]])
+    depths = torch.from_numpy(sc["depths"]).float()
+    poses = torch.from_numpy(sc["poses"]).float()
+    flows, _ = depth_based_flow(depths[:-1], poses[:-1], poses[1:], K)
+    cfg = AlignerConfig(flow_loss_weight=0.1)
+    runs, inits = {}, {}
+    for name, device in devices:
+        preds = {k: torch.from_numpy(v).to(device) for k, v in p.items()}
+        timer = StageTimer(device)
+        al = GroupAligner(sc["groups"], preds["pts3d"], preds["conf"], sc["hw"],
+                          invdepth=preds["inv_depth"], trajs=preds["traj"], config=cfg,
+                          target_flows=flows.to(device), device=device)
+        init_from_group(al, preds["pts3d"], preds["conf"])
+        inits[name] = {k: v.detach().cpu().clone() for k, v in al.params.items()}
+        with torch.no_grad():
+            before = float(al._flow_term(al.params))
+        t0 = time.perf_counter()
+        al.run(timer=timer)
+        with torch.no_grad():
+            after = float(al._flow_term(al.params))
+        if device.type == "cuda":
+            card_ms["flow"] = per_iter_ms(timer, al)
+        print(f"align_reference flow: {name} run {time.perf_counter() - t0:.3f} s, final loss "
+              f"{al.final_loss:.6f}; flow term (mean px error) {before:.5f} after init -> "
+              f"{after:.5f} after the run", flush=True)
+        if not after < before:
+            raise AssertionError(f"align_reference flow: {name}: the flow term did not fall")
+        runs[name] = al
+    def term_and_grads(al):
+        params = {k: v.to(al.device, torch.float64).requires_grad_()
+                  for k, v in inits["cpu"].items()}
+        term = al._flow_term(params)
+        grads = torch.autograd.grad(term, [params[k] for k in ("log_depth", "poses", "focal")])
+        return [term.item()] + [g.cpu() for g in grads]
+
+    (va, *ga), (vb, *gb) = term_and_grads(runs["cuda"]), term_and_grads(runs["cpu"])
+    term_rel = max([abs(va / vb - 1)] + [float((a - b).norm() / b.norm()) for a, b in zip(ga, gb)])
+    print(f"align_reference flow: the term at the CPU's post-init parameters in float64, card vs "
+          f"CPU: value and gradient (depth, poses, focal; relative L2) within {term_rel:.3e} "
+          f"(limit {FLOW_TERM_REL})", flush=True)
+    if not term_rel <= FLOW_TERM_REL:
+        raise AssertionError("align_reference flow: the card's flow term disagrees with the CPU's")
+    compare_card_cpu("align_reference flow", runs["cuda"], runs["cpu"], ALIGN_FLOW_REL)
+    check_ground_truth("align_reference flow", runs, sc)
+    print(f"align_reference: card ms per aligner iteration {card_ms['plain']:.3f} without the "
+          f"flow term, {card_ms['flow']:.3f} with it (+{card_ms['flow'] - card_ms['plain']:.3f})",
+          flush=True)
 
 
 def main() -> int:
@@ -842,10 +1241,15 @@ def main() -> int:
         return 0
     with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         results = kernel_phase(dev)
-    launches, by_shape, model, text_ctx, uncond_text_ctx = slice_phase(dev)
-    evaluate_phase(dev, model, text_ctx, uncond_text_ctx)
+    launches, by_shape, model, text_ctx, uncond_text_ctx, scene = slice_phase(dev)
+    evaluate_phase(dev, model, text_ctx, uncond_text_ctx, scene)
+    del scene
     resolutions_phase(dev, model, text_ctx)
+    with torch.no_grad():
+        attention_options_phase(dev, model, text_ctx)
     del model
+    torch.cuda.empty_cache()
+    inputs_phase(dev)
     torch.cuda.empty_cache()
     if args.shapes_to:
         with open(args.shapes_to, "w") as f:
@@ -854,7 +1258,8 @@ def main() -> int:
     with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         totals = shapes_phase(dev, by_shape)
     with torch.no_grad():
-        reference_phase(dev)
+        for name, opts in ATTENTION_OPTIONS.items():
+            reference_phase(dev, name, **opts)
     align_reference_phase(dev)
 
     foreign = sorted(m for m, mod in sys.modules.items()

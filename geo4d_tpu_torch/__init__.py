@@ -3,15 +3,18 @@
 Same subpackage layout as the JAX package, channels-last activations:
   core/       numpy noise-schedule tables, YAML config and model registry,
               stage timer
-  data/       CLIP tokenizer, frame loading for the CLI
+  data/       CLIP tokenizer, frame and video loading (PNG, JPEG: no
+              Pillow), evaluation datasets, their preparation and Sintel's
+              dynamic masks
   ops/        kernel gate and loader; GroupNorm, spatial and temporal
               attention wrappers, each with its plain PyTorch version
   csrc/       the hand-written CUDA kernels (built with nvcc at first use)
+              and the host JPEG decoder (built with g++ at first use)
   nn/         basics, attention stack, CLIP text and vision towers, resampler
   models/     UNet3D, AutoencoderKL, GeoDiffusion, presets, checkpoint loader
   sampling/   DDIM
   geometry/   masks, denormalisation, Plücker -> cameras, SE3/Sim3 codecs,
-              MoGe focal recovery, RANSAC-PnP
+              MoGe focal recovery, RANSAC-PnP, rigid flow and warping
   evals/      the IRLS scale-shift fit of the aligner's calibration,
               trajectory metrics
   alignment/  group aligner, its initialisation, point-cloud cleanup
@@ -19,7 +22,7 @@ Same subpackage layout as the JAX package, channels-last activations:
   cli/        the inference CLI and its model building
   tools/      the aligner profile on the card
 
-The port imports nothing of JAX, Flax, Optax or OpenCV, and nothing of the
+The port imports nothing of JAX, Flax, Optax, OpenCV or Pillow, and nothing of the
 JAX package `geo4d_tpu`: the few numpy-only pieces it needs from there
 (trajectory metrics, results export, YAML config, tokenizer, frame loading)
 are its own copies, held equal to the originals by tests/test_torch_*.py.

@@ -1,5 +1,5 @@
 """Initialisation of the group aligner from the window predictions, port of
-the device-resident path of geo4d_tpu/alignment/init.py
+geo4d_tpu/alignment/init.py. Tensors take the device-resident path
 (`_init_from_group_device` with `_init_gather_dev` and `_init_write_dev`):
 
  1. MoGe focal recovery on every window's FIRST frame, all windows at once
@@ -18,6 +18,14 @@ the device-resident path of geo4d_tpu/alignment/init.py
 The predictions stay on their device; only (G,) focal values, the (N, p)
 subsample mask and the (N,) PnP results cross to the host.
 
+Numpy inputs take the JAX package's host chain (`init_from_group`'s numpy
+branch, the reference's `align_group_prefix` order), on the aligner's
+device: window by window, each later window sim3-registered (float64) on
+its overlap with the frames placed so far, its frames then overwrite their
+placements, and every frame of the window gets a dense PnP on all its
+masked pixels, warm-started from the previous frame's PnP focal; the
+window sim3 poses are fitted on the final placements.
+
 `init_from_known_poses` is the JAX package's initialisation from known
 cameras (the reference's init='known_poses').
 """
@@ -32,7 +40,7 @@ import torch
 from geo4d_tpu_torch.alignment.optimizer import GroupAligner
 from geo4d_tpu_torch.core.timing import stage
 from geo4d_tpu_torch.geometry.moge import point_map_to_depth
-from geo4d_tpu_torch.geometry.pnp import fast_pnp_points_batched
+from geo4d_tpu_torch.geometry.pnp import fast_pnp, fast_pnp_points_batched
 from geo4d_tpu_torch.geometry.se3 import pose_to_params, umeyama_sim3
 from geo4d_tpu_torch.geometry.utils import inv_se3
 
@@ -90,13 +98,37 @@ def _init_gather(pred_flat: torch.Tensor, conf_flat: torch.Tensor, groups: np.nd
     return fov_x, fov_y, sub, sub_mask, s_all, R_all, t_all, pts_acc, conf_acc
 
 
+def _clamped_focals(fov_x: np.ndarray, fov_y: np.ndarray, H: int, W: int) -> np.ndarray:
+    """Pixel focal of each window from MoGe's fields of view, averaged over
+    the axes; focals more than 60% off the mean of those above 30 px take
+    that mean."""
+    focal = (0.5 / np.tan(fov_x / 2) * W + 0.5 / np.tan(fov_y / 2) * H) / 2
+    good = focal > 30
+    mean_focal = focal[good].mean() if good.any() else float(max(H, W))
+    rel_err = np.abs(focal - mean_focal) / (mean_focal + 1e-12)
+    return np.where(rel_err > 0.6, mean_focal, focal)
+
+
 @torch.no_grad()
 def init_from_group(aligner: GroupAligner, pred_pts, conf, niter_pnp: int = 10,
                     verbose: bool = False, timer=None) -> int:
     """Initialise `aligner.params` in place from the window predictions
-    pred_pts (G, S, H, W, 3) and conf (G, S, H, W) (tensors or numpy, moved
-    to the aligner's device). Returns the number of frames whose PnP failed
-    (they keep the identity pose)."""
+    pred_pts (G, S, H, W, 3) and conf (G, S, H, W), on the aligner's device:
+    tensors through the device-resident path, numpy arrays through the host
+    chain. Returns the number of frames whose PnP failed (they keep the
+    identity pose)."""
+    if isinstance(pred_pts, torch.Tensor):
+        failures = _init_from_group_device(aligner, pred_pts, conf, niter_pnp, verbose, timer)
+    else:
+        failures = _init_from_group_host(aligner, pred_pts, conf, niter_pnp, verbose, timer)
+    aligner.pnp_failures = failures
+    if verbose:
+        print(f"[init] loss = {float(aligner.loss_fn(aligner.params, False)):.5f}")
+    return failures
+
+
+def _init_from_group_device(aligner: GroupAligner, pred_pts, conf, niter_pnp: int,
+                            verbose: bool, timer) -> int:
     cfg = aligner.cfg
     groups = aligner.groups
     G, S = groups.shape
@@ -110,12 +142,7 @@ def init_from_group(aligner: GroupAligner, pred_pts, conf, niter_pnp: int = 10,
         sel = torch.as_tensor(sel_np, device=dev)
         (fov_x, fov_y, sub, sub_mask, s_all, R_all, t_all, pts_acc,
          conf_acc) = _init_gather(pred_flat, conf_flat, groups, sel, H, W, N)
-        fov_x, fov_y = fov_x.cpu().numpy(), fov_y.cpu().numpy()
-        focal = (0.5 / np.tan(fov_x / 2) * W + 0.5 / np.tan(fov_y / 2) * H) / 2
-        good = focal > 30
-        mean_focal = focal[good].mean() if good.any() else float(max(H, W))
-        rel_err = np.abs(focal - mean_focal) / (mean_focal + 1e-12)
-        focal_group = np.where(rel_err > 0.6, mean_focal, focal)
+        focal_group = _clamped_focals(fov_x.cpu().numpy(), fov_y.cpu().numpy(), H, W)
 
     with stage(timer, "align_pnp"):
         # warm start: each frame takes the focal of the nearest window that
@@ -166,10 +193,130 @@ def init_from_group(aligner: GroupAligner, pred_pts, conf, niter_pnp: int = 10,
         else:
             f = np.where(pnp_ok, pnp_f, focal_group[0]).astype(np.float32)
             p["focal"].copy_(torch.from_numpy(cfg.focal_break * np.log(f)))
-    aligner.pnp_failures = failures
-    if verbose:
-        print(f"[init] loss = {float(aligner.loss_fn(aligner.params, False)):.5f}")
     return failures
+
+
+def recover_group_focals(ref_pointmaps: torch.Tensor, ref_conf: torch.Tensor) -> np.ndarray:
+    """MoGe focal (pixels, float64) of each window from its first frame's
+    point map (G, H, W, 3) and confidence (G, H, W): z shifted positive over
+    all windows, the 64 x 64 nearest downsample, pixels of confidence above
+    0.5, outliers clamped to the mean."""
+    g, h, w, _ = ref_pointmaps.shape
+    pts = ref_pointmaps.clone()
+    pts[..., 2] = pts[..., 2] - pts[..., 2].min() + 1.0
+    d = MOGE_SIZE
+    yi = torch.arange(d, device=pts.device) * h // d
+    xi = torch.arange(d, device=pts.device) * w // d
+    _, fov_x, fov_y, _ = point_map_to_depth(pts[:, yi][:, :, xi], (ref_conf > 0.5)[:, yi][:, :, xi],
+                                            downsample_size=(d, d), image_size=(h, w))
+    return _clamped_focals(fov_x.cpu().numpy(), fov_y.cpu().numpy(), h, w).astype(np.float64)
+
+
+def _sim3_f64(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor):
+    """Weighted Umeyama of (M, 3) point sets, in float64."""
+    return umeyama_sim3(src.double(), dst.double(), w.double())
+
+
+def _init_from_group_host(aligner: GroupAligner, pred_pts, conf, niter_pnp: int,
+                          verbose: bool, timer) -> int:
+    cfg = aligner.cfg
+    groups = aligner.groups
+    G, S = groups.shape
+    H, W, N = aligner.H, aligner.W, aligner.N
+    dev = aligner.device
+    pred = torch.as_tensor(np.asarray(pred_pts), dtype=torch.float32, device=dev)
+    cf = torch.as_tensor(np.asarray(conf), dtype=torch.float32, device=dev)
+    pred, cf = pred.reshape(G, S, H, W, 3), cf.reshape(G, S, H, W)
+
+    with stage(timer, "align_init"):
+        focal_group = recover_group_focals(pred[:, 0], cf[:, 0])
+    pts3d: List[Optional[torch.Tensor]] = [None] * N          # (H, W, 3) world placements
+    conf_list: List[Optional[torch.Tensor]] = [None] * N
+    im_poses: List[Optional[np.ndarray]] = [None] * N
+    im_focals: List[Optional[float]] = [None] * N
+    failed = set()
+
+    def pnp_frame(i: int, warm: Optional[float]):
+        with stage(timer, "align_pnp"):
+            res = fast_pnp(pts3d[i], conf_list[i] > 0.5, focal=warm, niter=niter_pnp)
+        if res is not None:
+            im_focals[i], im_poses[i] = res
+            failed.discard(i)
+        elif im_poses[i] is None:             # no earlier visit placed it either
+            im_poses[i] = np.eye(4)
+            failed.add(i)
+
+    for s_idx, i in enumerate(groups[0]):      # window 0 defines the world frame
+        pts3d[i], conf_list[i] = pred[0, s_idx], cf[0, s_idx]
+        if s_idx == 0:
+            im_focals[i] = focal_group[0]
+        pnp_frame(i, im_focals[i - 1] if i > 0 else im_focals[i])
+    placed = set(int(i) for i in groups[0])
+    for g in range(1, G):
+        with stage(timer, "align_init"):
+            overlap = [(s_idx, i) for s_idx, i in enumerate(groups[g]) if int(i) in placed]
+            if not overlap:
+                raise ValueError(f"window {g} shares no frame with the windows before it "
+                                 "(the stride must be below the window size)")
+            s, R, t = _sim3_f64(
+                torch.cat([pred[g, s_idx].reshape(-1, 3) for s_idx, _ in overlap]),
+                torch.cat([pts3d[i].reshape(-1, 3) for _, i in overlap]),
+                torch.cat([(cf[g, s_idx] * conf_list[i]).reshape(-1) for s_idx, i in overlap]))
+            s, R, t = s.float(), R.float(), t.float()
+        for s_idx, i in enumerate(groups[g]):
+            # later windows overwrite: frames near a window's start are taken
+            # as the better placed
+            pts3d[i] = (s * pred[g, s_idx]).reshape(-1, 3) @ R.T + t
+            pts3d[i] = pts3d[i].reshape(H, W, 3)
+            conf_list[i] = cf[g, s_idx]
+            placed.add(int(i))
+            pnp_frame(i, focal_group[g] if s_idx == 0 else im_focals[i - 1])
+    if verbose and failed:
+        print(f"[init] PnP failed for frames {sorted(failed)}; identity pose")
+
+    with stage(timer, "align_init"):
+        # window sim3 poses onto the final placements
+        fits = [_sim3_f64(pred[g].reshape(-1, 3),
+                          torch.stack([pts3d[i] for i in groups[g]]).reshape(-1, 3),
+                          torch.stack([cf[g, s_idx] * conf_list[i]
+                                       for s_idx, i in enumerate(groups[g])]).reshape(-1))
+                for g in range(G)]
+        pw_s = torch.stack([f[0] for f in fits])
+        T = torch.eye(4, dtype=torch.float64, device=dev).repeat(G, 1, 1)
+        T[:, :3, :3] = torch.stack([f[1] for f in fits])
+        T[:, :3, 3] = torch.stack([f[2] for f in fits])
+        p = aligner.params
+        p["pw_poses"].copy_(torch.cat([pose_to_params(T.float()),
+                                       torch.log(pw_s.clamp(min=1e-8)).float()[:, None]], -1))
+
+        # global scale normalisation: the mean log window scale -> base_scale
+        scales = np.clip(pw_s.cpu().numpy(), 1e-6, 1e6)
+        s_factor = float(np.exp(np.log(cfg.base_scale) - np.mean(np.log(scales))))
+        if not np.isfinite(s_factor):
+            s_factor = 1.0
+        c2w = np.stack(im_poses)
+        c2w[:, :3, 3] *= s_factor
+
+        # depth of each placement in its camera; sky (conf ~0) at frame 0's
+        # farthest depth
+        R_w2c = np.transpose(c2w[:, :3, :3], (0, 2, 1))
+        w2c = torch.as_tensor(np.concatenate([R_w2c, -R_w2c @ c2w[:, :3, 3:]], -1), device=dev)
+        depth = torch.stack([(pts3d[i].reshape(-1, 3) * s_factor).double() @ w2c[i, :, :3].T
+                             + w2c[i, :, 3] for i in range(N)])[..., 2]
+        sky = torch.stack([c.reshape(-1) for c in conf_list]) < 1e-4
+        depth = torch.where(sky, depth[0].max(), depth).float()
+        depth = torch.nan_to_num(depth, nan=1.0, posinf=1e4, neginf=1e-6)
+        p["log_depth"].copy_(torch.log(torch.clamp(depth, 1e-6, 1e6)))
+        p["poses"].copy_(pose_to_params(torch.as_tensor(c2w, dtype=torch.float32, device=dev)))
+        if cfg.shared_focal:
+            vals = [f for f in im_focals if f is not None]
+            mean_f = float(np.mean(vals)) if vals else float(max(H, W))
+            p["focal"].copy_(torch.tensor([cfg.focal_break * np.log(mean_f)]))
+        else:
+            f = np.asarray([fv if fv is not None else focal_group[0] for fv in im_focals],
+                           np.float32)
+            p["focal"].copy_(torch.from_numpy(cfg.focal_break * np.log(f)))
+    return len(failed)
 
 
 @torch.no_grad()

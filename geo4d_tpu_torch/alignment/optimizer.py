@@ -13,7 +13,9 @@ Parameters (optimized jointly; `params` maps these names to tensors):
 Loss = conf-weighted L1 point-map consistency
      + 2 x inverse-depth consistency to the diffusion disparity (phase 2)
      + 0.005 x trajectory loss to the diffusion cameras (phase 2)
-     + temporal pose smoothness (+ the optional si-log depth pull).
+     + temporal pose smoothness
+     (+ the optional rigid-flow term to given optical flow, and the optional
+     si-log depth pull).
 
 Two phases of Adam (b1 = b2 = 0.9, eps 1e-8 outside the square root, a
 linear or cosine learning-rate schedule), with the iteration-150
@@ -38,6 +40,7 @@ from geo4d_tpu_torch.evals.depth import lad_align_irls
 from geo4d_tpu_torch.evals.trajectory import Trajectory, align_trajectory_with_eval
 from geo4d_tpu_torch.geometry.se3 import params_to_pose, pose_to_params
 from geo4d_tpu_torch.geometry.utils import inv_se3
+from geo4d_tpu_torch.geometry.warp import flow_error_sums
 
 PARAM_NAMES = ("log_depth", "poses", "pw_poses", "traj_align", "focal", "s_depth", "t_depth")
 
@@ -67,7 +70,7 @@ class AlignerConfig:
     rpe_rot_valid_deg: float = 4.0
     delta_valid_thr: float = 0.3
     min_conf_thr: float = 3.0
-    flow_loss_weight: float = 0.0       # the flow term is not ported (raises when live)
+    flow_loss_weight: float = 0.0
     flow_loss_fn: str = "l1"
     flow_loss_start_frac: float = 0.1
     motion_mask_thre: float = 0.35
@@ -103,6 +106,9 @@ class GroupAligner:
       invdepth (G, S, P)    diffusion inverse depth
       trajs    (G, S, 4, 4) diffusion cameras
       groups   (G, S) int   frame index of each window slot
+      target_flows (N-1, H, W, 2) optical flow from frame i to i + 1, and
+      flow_masks   (N-1, H, W)    its weights (default 1): the rigid-flow
+                   term, live when config.flow_loss_weight > 0
     Everything lives on `device`: by default the device of `pred_pts` when
     it is a tensor, else the CUDA device (an error where there is none);
     pass device="cpu" to run on the CPU."""
@@ -110,9 +116,6 @@ class GroupAligner:
     def __init__(self, groups, pred_pts, weights, imshape: Tuple[int, int], invdepth=None,
                  trajs=None, config: AlignerConfig = AlignerConfig(), target_flows=None,
                  flow_masks=None, device=None):
-        if target_flows is not None and config.flow_loss_weight > 0:
-            raise NotImplementedError(
-                "the rigid-flow term of the aligner is not ported (off in the shipped config)")
         self.cfg = config
         self.groups = np.asarray(groups, np.int64)
         self.G, self.S = self.groups.shape
@@ -138,6 +141,12 @@ class GroupAligner:
             self.buf["invdepth"] = f32(invdepth).reshape(G, S, P)
         if self.has_traj:
             self.buf["trajs"] = f32(trajs).reshape(G, S, 4, 4)
+        self.has_flow = target_flows is not None and config.flow_loss_weight > 0
+        if self.has_flow:
+            self.buf["target_flows"] = f32(target_flows).reshape(self.N - 1, self.H, self.W, 2)
+            self.buf["flow_masks"] = (torch.ones(self.N - 1, self.H, self.W, device=dev)
+                                      if flow_masks is None
+                                      else f32(flow_masks).reshape(self.N - 1, self.H, self.W))
         pix = torch.arange(P, device=dev)
         self.grid = torch.stack([pix % self.W, pix // self.W], -1).float()       # (P, 2)
         self.pp = torch.tensor([self.W / 2, self.H / 2], device=dev)
@@ -259,12 +268,29 @@ class GroupAligner:
             loss = loss + cfg.temporal_smoothing_weight * _rel_pose_loss(
                 poses[:-1], poses[1:], cfg.translation_weight).sum()
 
+        if self.has_flow and iter_frac >= cfg.flow_loss_start_frac:
+            loss = loss + cfg.flow_loss_weight * self._flow_term(params)
+
         if cfg.depth_regularize_weight > 0 and self._log_depth_init is not None:
             # scale-invariant log-depth pull to the init depth
             ld, ld0 = params["log_depth"], self._log_depth_init
             shift = (ld0 - ld).mean(-1, keepdim=True)
             loss = loss + cfg.depth_regularize_weight * ((ld - ld0 + shift) ** 2).mean(-1).mean()
         return loss
+
+    def _flow_term(self, params) -> torch.Tensor:
+        """Rigid flow of each consecutive frame pair (depth i, poses i and
+        i + 1, frame 0's focal) against the target flow: the error summed
+        over valid, mask-weighted pixels of all pairs over the weights' sum."""
+        f = self._focals(params)[0]
+        zero, one = torch.zeros_like(f), torch.ones_like(f)
+        K = torch.stack([f, zero, zero + self.W / 2, zero, f, zero + self.H / 2,
+                         zero, zero, one]).reshape(3, 3)
+        depth = torch.exp(params["log_depth"]).reshape(self.N, self.H, self.W)
+        num, den = flow_error_sums(depth, params_to_pose(params["poses"]), K,
+                                   self.buf["target_flows"], self.buf["flow_masks"],
+                                   self.cfg.flow_loss_fn)
+        return num.sum() / (den.sum() + 1e-8)
 
     # ---------------- optimization ----------------
 

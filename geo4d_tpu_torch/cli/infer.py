@@ -14,8 +14,8 @@ Usage:
 --device cuda (the default) requires a CUDA device and runs the
 hand-written kernels; --device cpu runs their plain versions.
 A video file is decoded by the repo's FFmpeg decoder (native/, built on
-first use); a directory of PNG frames needs nothing more (JPEG frames need
-Pillow).
+first use; where FFmpeg's development libraries are missing that is an
+error); a directory of PNG or JPEG frames needs nothing more.
 """
 
 from __future__ import annotations

@@ -23,9 +23,6 @@ def _register_all():
 
     @components.register("geo4d_tpu.UNet3D", "lvdm.modules.networks.openaimodel3d.UNetModel")
     def _unet(dtype, **p):
-        if p.get("use_relative_position") or p.get("use_causal_attention"):
-            raise NotImplementedError("relative-position and causal temporal attention are "
-                                      "not ported (both off in the shipped config)")
         # `dropout` is a training knob: inference runs the modules in eval mode
         return UNet3D(
             in_channels=p.get("in_channels", 20),
@@ -40,6 +37,8 @@ def _register_all():
             temporal_length=p.get("temporal_length", 16),
             temporal_conv=p.get("temporal_conv", True),
             temporal_attention=p.get("temporal_attention", True),
+            use_relative_position=p.get("use_relative_position", False),
+            use_causal_attention=p.get("use_causal_attention", False),
             addition_attention=p.get("addition_attention", True),
             image_cross_attention=p.get("image_cross_attention", True),
             fs_condition=p.get("fs_condition", False),
@@ -96,7 +95,8 @@ def _register_all():
 def build_from_yaml(path: str, dtype=torch.bfloat16, device="meta") -> Tuple[Any, Dict[str, Any]]:
     """Reference-layout YAML -> (GeoDiffusion, postprocess dict). The model
     is built on `device` (default meta: no memory until `init_random_` or a
-    checkpoint load materialises it)."""
+    checkpoint load materialises it). The top-level `pointmap_vae_config` is
+    optional: without it the pointmap decodes through the RGB VAE."""
     if "geo4d_tpu.UNet3D" not in components:
         _register_all()
     from geo4d_tpu_torch.core.schedules import DiffusionSchedule
@@ -104,12 +104,6 @@ def build_from_yaml(path: str, dtype=torch.bfloat16, device="meta") -> Tuple[Any
 
     cfg = load_config(path)
     mp = cfg["model"]["params"]
-    modality = mp.get("modality", "pc_ray_cross_depth")
-    if modality != "pc_ray_cross_depth":
-        raise NotImplementedError(f"modality {modality!r} is not ported "
-                                  "(only the shipped pc_ray_cross_depth)")
-    if "pointmap_vae_config" not in cfg:
-        raise ValueError("the config has no pointmap_vae_config (the pointmap decoder)")
 
     def build(node):
         return instantiate(node, components, dtype=dtype)
@@ -127,11 +121,13 @@ def build_from_yaml(path: str, dtype=torch.bfloat16, device="meta") -> Tuple[Any
         model = GeoDiffusion(
             unet=build(mp["unet_config"]),
             vae=build(mp["first_stage_config"]),
-            pointmap_vae=build(cfg["pointmap_vae_config"]),
+            pointmap_vae=(build(cfg["pointmap_vae_config"]) if "pointmap_vae_config" in cfg
+                          else None),
             text_encoder=build(mp["cond_stage_config"]),
             image_encoder=build(mp["img_cond_stage_config"]),
             resampler=build(mp["image_proj_stage_config"]),
             schedule=schedule,
             scale_factor=mp.get("scale_factor", 0.18215),
+            modality=mp.get("modality", "pc_ray_cross_depth"),
         )
     return model, cfg.get("postprocess", {})

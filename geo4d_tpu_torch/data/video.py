@@ -2,13 +2,14 @@
 device): the port's copy of geo4d_tpu/data/video.py's image-directory loader
 and native video decode, without OpenCV.
 
-PNG frames are read and Lanczos-resized by data/images.py (the same pixels
-as Pillow's, without Pillow); JPEG frames need Pillow to decode them.
+PNG frames are read by data/images.py and JPEG frames by data/jpeg.py (the
+same pixels as Pillow's, without Pillow), then Lanczos-resized by
+data/images.py (Pillow's resize, bit for bit).
 
 Video files go through the repo's C++ FFmpeg decoder (native/video_decoder.cpp,
 built on first use, loaded with ctypes), which resizes at decode time.
-Where it cannot be built, a video file is an error: pass a directory of
-frames instead.
+Where FFmpeg's development libraries are missing, a video file is an error
+that says so: pass a directory of PNG or JPEG frames instead.
 """
 
 from __future__ import annotations
@@ -22,10 +23,12 @@ from typing import List, Tuple
 import numpy as np
 
 from geo4d_tpu_torch.data.images import lanczos_resize, read_png
+from geo4d_tpu_torch.data.jpeg import read_jpeg
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native")
 _NATIVE_LIB = os.path.join(_NATIVE_DIR, "libgeo4d_video.so")
+FFMPEG_LIBS = ["libavformat", "libavcodec", "libavutil", "libswscale"]
 
 
 def _native_decoder():
@@ -33,15 +36,26 @@ def _native_decoder():
     native/build.sh's flags, into a temporary file renamed into place, so a
     concurrent build or load never sees a partial library)."""
     if not os.path.exists(_NATIVE_LIB):
+        try:
+            probe = subprocess.run(["pkg-config", "--cflags", "--libs", *FFMPEG_LIBS],
+                                   capture_output=True, text=True, timeout=60)
+        except FileNotFoundError as e:
+            raise RuntimeError("video files need the FFmpeg development libraries, found "
+                               "through pkg-config, which is not installed; pass a "
+                               "directory of PNG or JPEG frames instead") from e
+        if probe.returncode != 0:
+            raise RuntimeError(f"video files need the FFmpeg development libraries "
+                               f"({', '.join(FFMPEG_LIBS)}), which pkg-config does not find "
+                               "here; pass a directory of PNG or JPEG frames instead. "
+                               f"pkg-config said: {probe.stderr.strip()[-2000:]}")
         tmp = f"{_NATIVE_LIB}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            ["bash", "-c", f"g++ -O3 -fPIC -shared -std=c++17 video_decoder.cpp -o {tmp} "
-             "$(pkg-config --cflags --libs libavformat libavcodec libavutil libswscale)"],
-            cwd=_NATIVE_DIR, capture_output=True, text=True, timeout=300)
+        proc = subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
+                               "video_decoder.cpp", "-o", tmp, *probe.stdout.split()],
+                              cwd=_NATIVE_DIR, capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
-            raise RuntimeError("the native video decoder could not be built (needs g++ and "
-                               "the FFmpeg development libraries); pass a directory of "
-                               f"frames instead:\n{proc.stderr[-2000:]}")
+            raise RuntimeError("the native video decoder could not be built against FFmpeg; "
+                               "pass a directory of PNG or JPEG frames instead. g++ said:\n"
+                               f"{proc.stderr[-2000:]}")
         os.replace(tmp, _NATIVE_LIB)
     lib = ctypes.CDLL(_NATIVE_LIB)
     lib.vd_open.restype = ctypes.c_void_p
@@ -96,17 +110,9 @@ def load_image_dir(dir_path: str, video_size: Tuple[int, int],
 
 
 def _read_frame(path: str) -> np.ndarray:
-    """An 8-bit frame file as (H, W, 3) uint8 RGB, as Pillow's convert("RGB")
-    gives it: grayscale repeated, alpha dropped."""
-    if os.path.splitext(path)[1].lower() != ".png":
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise ImportError(f"{path}: JPEG frames need Pillow, which is not installed; "
-                              "PNG frames do not") from e
-        with Image.open(path) as im:
-            return np.asarray(im.convert("RGB"), np.uint8)
-    img = read_png(path)
+    """An 8-bit frame file (PNG or JPEG) as (H, W, 3) uint8 RGB, as Pillow's
+    convert("RGB") gives it: grayscale repeated, alpha dropped."""
+    img = read_png(path) if os.path.splitext(path)[1].lower() == ".png" else read_jpeg(path)
     if img.dtype != np.uint8:
         raise ValueError(f"{path}: 16-bit frames are not supported")
     if img.ndim == 2:

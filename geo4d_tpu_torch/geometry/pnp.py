@@ -239,6 +239,24 @@ def fast_pnp_points_batched(
     return focal_out, c2w_np, ok
 
 
+def fast_pnp(pts3d: torch.Tensor, mask: torch.Tensor, focal: Optional[float] = None,
+             pp: Optional[Tuple[float, float]] = None, niter: int = 10,
+             reproj_err: float = 5.0, max_points: int = 4096
+             ) -> Optional[Tuple[float, np.ndarray]]:
+    """One frame's pose from its point map pts3d (H, W, 3) at the pixels
+    where mask (H, W) holds, each point seen at its own pixel -> (focal,
+    cam_to_world 4x4) or None (fewer than 4 masked points, or no pose)."""
+    pts3d, mask = torch.as_tensor(pts3d), torch.as_tensor(mask, device=pts3d.device)
+    if int(mask.sum()) < 4:
+        return None
+    h, w = mask.shape
+    y, x = torch.meshgrid(torch.arange(h, device=pts3d.device),
+                          torch.arange(w, device=pts3d.device), indexing="ij")
+    pix = torch.stack([x, y], -1).to(torch.float64)
+    return fast_pnp_points(pts3d[mask], pix[mask], (w, h), focal=focal, pp=pp, niter=niter,
+                           reproj_err=reproj_err, max_points=max_points)
+
+
 def fast_pnp_points(p3, p2, size_wh: Tuple[int, int], focal: Optional[float] = None,
                     pp: Optional[Tuple[float, float]] = None, niter: int = 10,
                     reproj_err: float = 5.0, max_points: int = 4096,

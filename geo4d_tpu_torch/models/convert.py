@@ -67,6 +67,8 @@ def load_checkpoints(model: torch.nn.Module, ckpt_path: Optional[str] = None,
             if module is not None:
                 reports[tower] = load_tower(module, sd, prefix, tower)
     if vae_ckpt_path:
+        if model.pointmap_vae is None:
+            raise ValueError(f"{vae_ckpt_path}: the model has no pointmap VAE to load it into")
         raw = torch.load(vae_ckpt_path, map_location="cpu", weights_only=True)
         reports["pointmap_vae"] = load_tower(model.pointmap_vae, raw.get("state_dict", raw),
                                              "model.", "pointmap_vae")

@@ -29,15 +29,18 @@ SCALE_FACTOR = 0.18215
 
 class GeoDiffusion(nn.Module):
     """Module bundle: `unet`, `vae`, `pointmap_vae` (with the confidence
-    adaptor), `text_encoder` (None once the text context is computed),
-    `image_encoder`, `resampler`, plus the noise schedule."""
+    adaptor; optional), `text_encoder` (None once the text context is
+    computed), `image_encoder`, `resampler`, plus the noise schedule and the
+    latent layout `modality` that `decode_modality` decodes by default."""
 
-    def __init__(self, unet: UNet3D, vae: AutoencoderKL, pointmap_vae: AutoencoderKL,
+    def __init__(self, unet: UNet3D, vae: AutoencoderKL, pointmap_vae: Optional[AutoencoderKL],
                  image_encoder: CLIPVisionEncoder, resampler: Resampler,
                  schedule: Optional[DiffusionSchedule] = None,
                  scale_factor: float = SCALE_FACTOR,
-                 text_encoder: Optional[CLIPTextEncoder] = None):
+                 text_encoder: Optional[CLIPTextEncoder] = None,
+                 modality: str = "pc_ray_cross_depth"):
         super().__init__()
+        self.modality = modality
         self.unet = unet
         self.text_encoder = text_encoder
         self.vae = vae
@@ -80,8 +83,12 @@ class GeoDiffusion(nn.Module):
 
     def decode_pointmap_conf(self, z: torch.Tensor) -> torch.Tensor:
         """Pointmap latents -> (..., 4) = [xyz | confidence] through the
-        pointmap VAE's confidence adaptor."""
-        return self._decode(self.pointmap_vae, z, "decode_with_conf")
+        pointmap VAE's confidence adaptor; without a pointmap VAE, the RGB
+        VAE's decode with a confidence of 1."""
+        if self.pointmap_vae is not None:
+            return self._decode(self.pointmap_vae, z, "decode_with_conf")
+        rgb = self.decode_first_stage(z)
+        return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
 
     def decode_geometry(self, samples: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, T, h, w, 16) -> pointmap_conf, raymap, crossmap, inv_depth maps.
@@ -96,9 +103,10 @@ class GeoDiffusion(nn.Module):
                          "inv_depth": depth3.mean(dim=-1, keepdim=True)})
         return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
-    def decode_modality(self, samples: torch.Tensor, modality: str = "pc_ray_cross_depth"
+    def decode_modality(self, samples: torch.Tensor, modality: Optional[str] = None
                         ) -> Dict[str, torch.Tensor]:
-        """Decode the latent layouts of the reference's inference branches:
+        """Decode the latent layouts of the reference's inference branches
+        (`modality` defaults to the model's own):
           pc_ray_cross_depth  [pc 4 | ray 4 | cross 4 | depth 4] (shipped;
                               `decode_geometry`)
           pc_ray              [pc 4 | ray 4]
@@ -106,6 +114,7 @@ class GeoDiffusion(nn.Module):
           multipc             [pc0 4 | pc1 4 | video 4]
           img_vidpc           [video 4 | pc 4]
           rgb                 [video 4]"""
+        modality = modality or self.modality
         if modality == "pc_ray_cross_depth":
             return self.decode_geometry(samples)
         if modality == "pc_ray":

@@ -28,20 +28,22 @@ def flagship(dtype=torch.bfloat16, device="meta") -> GeoDiffusion:
         )
 
 
-def tiny(temporal_length: int = 4, dtype=torch.float32, device="cpu") -> GeoDiffusion:
+def tiny(temporal_length: int = 4, dtype=torch.float32, device="cpu",
+         **unet_options) -> GeoDiffusion:
     """Every tower present at ~1/100 of the channel counts (the JAX tiny
-    preset's shapes). One difference: the text tower keeps the tokenizer's
-    full vocabulary (49408 rows of width 64), since the shared tokenizer's
-    ids (start/end of text are 49406/49407) must index it; the JAX tiny
-    preset's 128-row table works only because XLA clamps out-of-range
-    gathers."""
+    preset's shapes); `unet_options` go to the UNet (for example
+    use_relative_position=True). One difference: the text tower keeps the
+    tokenizer's full vocabulary (49408 rows of width 64), since the shared
+    tokenizer's ids (start/end of text are 49406/49407) must index it; the
+    JAX tiny preset's 128-row table works only because XLA clamps
+    out-of-range gathers."""
     ctx_dim = 64
     vae_cfg = VAEConfig(ch=16, ch_mult=(1, 2, 2, 2), num_res_blocks=1, adaptor_ch=16)
     with torch.device(device):
         return GeoDiffusion(
             unet=UNet3D(model_channels=32, num_res_blocks=1, attention_resolutions=(1, 2),
                         channel_mult=(1, 2), num_head_channels=16, context_dim=ctx_dim,
-                        temporal_length=temporal_length, dtype=dtype),
+                        temporal_length=temporal_length, dtype=dtype, **unet_options),
             vae=AutoencoderKL(vae_cfg, with_adaptor=False, dtype=dtype),
             pointmap_vae=AutoencoderKL(vae_cfg, with_adaptor=True, dtype=dtype),
             image_encoder=CLIPVisionEncoder(width=48, heads=4, layers=2, patch_size=14,

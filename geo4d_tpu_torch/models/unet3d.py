@@ -113,7 +113,8 @@ class UNet3D(nn.Module):
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_head_channels: int = 64,
                  transformer_depth: int = 1, context_dim: int = 1024,
                  temporal_length: int = 16, temporal_conv: bool = True,
-                 temporal_attention: bool = True, addition_attention: bool = True,
+                 temporal_attention: bool = True, use_relative_position: bool = False,
+                 use_causal_attention: bool = False, addition_attention: bool = True,
                  image_cross_attention: bool = True, fs_condition: bool = True,
                  default_fs: int = 24, dtype=torch.bfloat16):
         super().__init__()
@@ -135,7 +136,9 @@ class UNet3D(nn.Module):
 
         def temporal(ch, heads=None):
             return TemporalTransformer(ch, heads or ch // num_head_channels, num_head_channels,
-                                       transformer_depth, dtype)
+                                       transformer_depth, relative_position=use_relative_position,
+                                       causal=use_causal_attention, temporal_length=t_len,
+                                       dtype=dtype)
 
         self.time_embed = time_embed_mlp(mc, emb_dim, dtype=dtype)
         if fs_condition:

@@ -8,8 +8,9 @@ Routing by shape, fixed before launch (as geo4d_tpu/nn/attention.py routes):
     self-attention at the two finest levels, and the 16-token image stream)
     -> kernel K2;
   * everything else (text cross-attention with 77 keys, the coarse spatial
-    levels) -> `dot_product_attention`, plain PyTorch, where the JAX package
-    used XLA.
+    levels, and temporal attention with the causal mask or the relative
+    position embeddings) -> `dot_product_attention` or the relative-position
+    path, plain PyTorch, where the JAX package used XLA.
 
 Module and parameter names follow the original Geo4D PyTorch code, so its
 state dicts (and the tests' weights bridge from the JAX package) load directly.
@@ -53,23 +54,51 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
     return dot_product_attention(q, k, v)
 
 
+class RelativePosition(nn.Module):
+    """Learned relative-position embeddings: a (2 max_relative_position + 1,
+    num_units) table indexed by the key-query distance, clipped to
+    +-max_relative_position."""
+
+    def __init__(self, num_units: int, max_relative_position: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.max_relative_position = max_relative_position
+        self.embeddings_table = nn.Parameter(
+            torch.empty(2 * max_relative_position + 1, num_units, dtype=dtype))
+        nn.init.xavier_uniform_(self.embeddings_table)
+
+    def forward(self, length_q: int, length_k: int) -> torch.Tensor:
+        """(length_q, length_k, num_units) embeddings of the distances k - q."""
+        dev = self.embeddings_table.device
+        dist = (torch.arange(length_k, device=dev)[None, :]
+                - torch.arange(length_q, device=dev)[:, None])
+        m = self.max_relative_position
+        return self.embeddings_table[dist.clamp(-m, m) + m]
+
+
 class CrossAttention(nn.Module):
     """Self or cross attention with the optional image stream: with
     `image_cross_attention`, context is [text (77) | image tokens], the image
-    tokens get their own K/V projections, and out = text + scale * image."""
+    tokens get their own K/V projections, and out = text + scale * image.
+
+    Temporal attention may also take a causal mask (`causal`) and learned
+    relative-position K and V embeddings (`relative_position`, distances
+    clipped to `temporal_length`)."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None, image_cross_attention: bool = False,
                  image_cross_attention_scale: float = 1.0, causal: bool = False,
-                 relative_position: bool = False, dtype=torch.bfloat16):
+                 relative_position: bool = False, temporal_length: Optional[int] = None,
+                 dtype=torch.bfloat16):
         super().__init__()
-        if causal or relative_position:
-            raise NotImplementedError(
-                "causal and relative-position temporal attention are not ported "
-                "(both are off in the shipped configuration)")
         inner = heads * dim_head
         ctx_dim = context_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
+        self.causal, self.relative_position = causal, relative_position
+        if relative_position:
+            if temporal_length is None:
+                raise ValueError("relative_position needs temporal_length")
+            self.relative_position_k = RelativePosition(dim_head, temporal_length, dtype)
+            self.relative_position_v = RelativePosition(dim_head, temporal_length, dtype)
         self.image_cross_attention = image_cross_attention
         self.image_cross_attention_scale = image_cross_attention_scale
         self.to_q = nn.Linear(query_dim, inner, bias=False, dtype=dtype)
@@ -94,20 +123,52 @@ class CrossAttention(nn.Module):
         k = self.to_k(ctx)
         v = self.to_v(ctx)
 
-        if context is None and n <= TEMPORAL_MAX_SEQ:
+        # K3 computes unmasked attention without position terms: the causal
+        # and relative-position options take the eager paths below, as they
+        # take XLA in the JAX package
+        if (context is None and n <= TEMPORAL_MAX_SEQ and not self.causal
+                and not self.relative_position):
             return self.to_out(temporal_attention(q, k, v, h))
 
         def split_heads(t):
             return t.view(t.shape[0], t.shape[1], h, d)
 
         qh = split_heads(q)
-        out = spatial_attention(qh, split_heads(k), split_heads(v)).reshape(b, n, h * d)
+        if self.relative_position:
+            out = self._relative_attention(qh, split_heads(k), split_heads(v))
+        elif self.causal:
+            out = dot_product_attention(qh, split_heads(k), split_heads(v), causal=True)
+        else:
+            out = spatial_attention(qh, split_heads(k), split_heads(v))
+        out = out.reshape(b, n, h * d)
         if ctx_img is not None and ctx_img.shape[1] > 0:
             k_ip = split_heads(self.to_k_ip(ctx_img))
             v_ip = split_heads(self.to_v_ip(ctx_img))
             out_ip = spatial_attention(qh, k_ip, v_ip).reshape(b, n, h * d)
             out = out + self.image_cross_attention_scale * out_ip
         return self.to_out(out)
+
+    def _relative_attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                            ) -> torch.Tensor:
+        """(B, N, H, D) attention with relative-position K and V embeddings
+        (and the causal mask when set): the position terms add q . e_k(j - i)
+        to the logits and sum_j w_ij e_v(j - i) to the output. Products in
+        float32 on inputs of the projections' dtype, f32 softmax, weights
+        cast to each value operand's dtype, output in v's dtype."""
+        n, len_k = q.shape[1], k.shape[1]
+        scale = self.dim_head ** -0.5
+        qf = q.float()
+        e_k = self.relative_position_k(n, len_k).to(q.dtype).float()
+        logits = (torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+                  + torch.einsum("bqhd,qkd->bhqk", qf, e_k)) * scale
+        if self.causal:
+            keep = torch.ones(n, len_k, dtype=torch.bool, device=q.device).tril()
+            logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
+        weights = torch.softmax(logits, dim=-1)
+        e_v = self.relative_position_v(n, len_k)
+        out = (torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(), v.float())
+               + torch.einsum("bhqk,qkd->bqhd", weights.to(e_v.dtype).float(), e_v.float()))
+        return out.to(v.dtype)
 
 
 class GEGLU(nn.Module):
@@ -137,12 +198,15 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None, image_cross_attention: bool = False,
-                 dtype=torch.bfloat16):
+                 relative_position: bool = False, temporal_length: Optional[int] = None,
+                 causal: bool = False, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        self.attn1 = CrossAttention(dim, heads, dim_head, dtype=dtype)
+        opts = dict(relative_position=relative_position, temporal_length=temporal_length,
+                    causal=causal, dtype=dtype)
+        self.attn1 = CrossAttention(dim, heads, dim_head, **opts)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim=context_dim,
-                                    image_cross_attention=image_cross_attention, dtype=dtype)
+                                    image_cross_attention=image_cross_attention, **opts)
         self.ff = GEGLUFeedForward(dim, dtype=dtype)
         self.norm1 = LayerNorm32(dim)
         self.norm2 = LayerNorm32(dim)
@@ -167,7 +231,7 @@ class SpatialTransformer(nn.Module):
         self.proj_in = nn.Linear(channels, inner, dtype=dtype)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, heads, dim_head, context_dim,
-                                  image_cross_attention, dtype) for _ in range(depth))
+                                  image_cross_attention, dtype=dtype) for _ in range(depth))
         self.proj_out = zero_(nn.Linear(inner, channels, dtype=dtype))
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -180,19 +244,24 @@ class SpatialTransformer(nn.Module):
 
 class TemporalTransformer(nn.Module):
     """Per-pixel attention over the T frames of (B, T, H, W, C) clips
-    (self-attention only, as shipped). The GroupNorm is per clip.
+    (self-attention only, as shipped; optionally causal and with
+    relative-position embeddings up to `temporal_length` apart). The
+    GroupNorm is per clip.
 
     proj_in/proj_out are linear; checkpoints that stored them as kernel-1
     Conv1d weights (O, I, 1) load too."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
-                 dtype=torch.bfloat16):
+                 relative_position: bool = False, causal: bool = False,
+                 temporal_length: Optional[int] = None, dtype=torch.bfloat16):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, inner, dtype=dtype)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, heads, dim_head, dtype=dtype) for _ in range(depth))
+            BasicTransformerBlock(inner, heads, dim_head, relative_position=relative_position,
+                                  temporal_length=temporal_length, causal=causal, dtype=dtype)
+            for _ in range(depth))
         self.proj_out = zero_(nn.Linear(inner, channels, dtype=dtype))
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):

@@ -10,6 +10,8 @@ visualizer reads):
   conf_XXXX.npy        per-frame confidence
   init_conf_XXXX.npy   initial confidence
   frame_XXXX.png       rgb frame (data/images.py's encoder)
+  enlarged_dynamic_mask_<i>.png  dynamic mask of frame i (0 / 255; the
+                       index is not zero-padded: the viewer globs this name)
   scene.glb            point cloud and camera frusta (binary glTF 2.0)
 
 The aligner is duck-typed: any object with the GroupAligner getters works.
@@ -26,8 +28,6 @@ import numpy as np
 
 from geo4d_tpu_torch.data.images import write_png
 
-# points of lower confidence are left out of scene.glb
-CONF_THRESHOLD = 1e-3
 # per-camera edge colours, cycled
 _CAM_PALETTE = np.asarray(
     [[0.90, 0.10, 0.10], [0.10, 0.60, 0.90], [0.10, 0.80, 0.30], [0.95, 0.75, 0.10],
@@ -36,10 +36,12 @@ _CAM_PALETTE = np.asarray(
 
 
 def save_results_dir(out_dir: str, aligner, rgb_frames: Optional[np.ndarray] = None,
-                     save_glb: bool = True):
+                     save_glb: bool = True, conf_threshold: float = 1e-3,
+                     dynamic_masks: Optional[np.ndarray] = None):
     """Write the results files of `aligner`; rgb_frames (N, H, W, 3) uint8
-    or [-1, 1] float. `save_glb=False` leaves out scene.glb (evaluation
-    does)."""
+    or [-1, 1] float; dynamic_masks (N, H, W) bool or 0/1, nonzero =
+    dynamic. `save_glb=False` leaves out scene.glb (evaluation does); its
+    point cloud keeps the points of confidence above `conf_threshold`."""
     if rgb_frames is not None and rgb_frames.dtype == np.uint8:
         rgb_frames = (rgb_frames.astype(np.float32) / 255.0 - 0.5) * 2.0
     os.makedirs(out_dir, exist_ok=True)
@@ -59,11 +61,15 @@ def save_results_dir(out_dir: str, aligner, rgb_frames: Optional[np.ndarray] = N
         for i in range(len(rgb_frames)):
             img = ((rgb_frames[i] + 1) / 2 * 255).clip(0, 255).astype(np.uint8)
             write_png(os.path.join(out_dir, f"frame_{i:04d}.png"), img)
+    if dynamic_masks is not None:
+        for i, m in enumerate(dynamic_masks):
+            write_png(os.path.join(out_dir, f"enlarged_dynamic_mask_{i}.png"),
+                      (np.asarray(m) > 0).astype(np.uint8) * 255)
     if not save_glb:
         return
 
     pts = aligner.get_pts3d().reshape(-1, 3)
-    mask = (confs > CONF_THRESHOLD).reshape(-1)
+    mask = (confs > conf_threshold).reshape(-1)
     if rgb_frames is not None:
         colors = ((rgb_frames + 1) / 2).clip(0, 1).reshape(-1, 3)
     else:

@@ -215,13 +215,16 @@ def align_predictions(groups: np.ndarray, preds: Dict[str, object], imshape,
     conf, inv_depth, traj; tensors or numpy) into one scene: build the
     aligner, preset known focals, initialise, run both phases. Runs on
     `device`; by default on the predictions' device when they are tensors,
-    else on the CUDA device (an error where there is none)."""
+    else on the CUDA device (an error where there is none). The
+    initialisation takes the device-resident path whatever the inputs, as
+    `reconstruct` does in the JAX package."""
     aligner = GroupAligner(groups, preds["pts3d"], preds["conf"], imshape,
                            invdepth=preds["inv_depth"], trajs=preds["traj"],
                            config=aligner_config, device=device)
     if intrinsics is not None:
         aligner.preset_focal([(K[0, 0] + K[1, 1]) / 2 for K in intrinsics])
-    init_from_group(aligner, preds["pts3d"], preds["conf"], verbose=verbose, timer=timer)
+    init_from_group(aligner, aligner.buf["pred_pts"], aligner.buf["weights"], verbose=verbose,
+                    timer=timer)
     aligner.run(verbose=verbose, timer=timer)
     return aligner
 

@@ -76,6 +76,19 @@ def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> List[Tuple[List[str], Any]
     return [(list(path), tree)]
 
 
+def torch_key(key_fn, path: List[str]) -> str | None:
+    """The PyTorch key of a JAX leaf. The relative-position tables of a
+    temporal attention (`<attn>/relative_position_{k,v}/embeddings_table`),
+    which the JAX package's key rules do not name, keep the original Geo4D
+    name `<attn>.relative_position_{k,v}.embeddings_table`."""
+    if path[-1] != "embeddings_table":
+        return key_fn(path)
+    attn = key_fn(path[:-2] + ["to_q", "kernel"])
+    if attn is None:
+        return None
+    return attn[:-len("to_q.weight")] + f"{path[-2]}.embeddings_table"
+
+
 def state_dict_from_jax(params: Any, tower: str) -> Dict[str, torch.Tensor]:
     """One tower's JAX param tree ({'params': ...}) -> the state dict of the
     port's matching module, each array in PyTorch's layout. Raises on a leaf
@@ -83,7 +96,7 @@ def state_dict_from_jax(params: Any, tower: str) -> Dict[str, torch.Tensor]:
     key_fn = KEY_FNS[tower]
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(params):
-        key = key_fn(path)
+        key = torch_key(key_fn, path)
         if key is None:
             raise KeyError(f"{tower}: no torch key for {'/'.join(path)}")
         arr = inverse_transform(path[-1], np.asarray(leaf, dtype=np.float32))
@@ -110,7 +123,7 @@ def sub_state_dict(params: Any, jax_prefix: List[str], torch_prefix: str) -> Dic
             for k, v in node.items():
                 walk(v, path + [str(k)])
             return
-        key = unet_torch_key(["params"] + jax_prefix + path[1:])
+        key = torch_key(unet_torch_key, ["params"] + jax_prefix + path[1:])
         assert key is not None and key.startswith(torch_prefix), (path, key)
         arr = inverse_transform(path[-1], np.asarray(node, np.float32))
         out[key[len(torch_prefix):]] = torch.from_numpy(np.ascontiguousarray(arr))

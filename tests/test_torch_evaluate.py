@@ -216,8 +216,9 @@ def test_load_image_dir_needs_no_pillow_for_png(tmp_path, monkeypatch):
     got, names = load_image_dir(str(tmp_path), (40, 24))
     assert got.shape == (4, 24, 40, 3) and len(names) == 4
     np.testing.assert_array_equal(got, want)
+    # JPEG frames take data/jpeg.py, not Pillow: a broken one is its error
     (tmp_path / "004.jpg").write_bytes(b"")
-    with pytest.raises(ImportError, match="004.jpg: JPEG frames need Pillow"):
+    with pytest.raises(ValueError, match="004.jpg: not a JPEG file"):
         load_image_dir(str(tmp_path), (40, 24))
 
 

@@ -2,9 +2,11 @@
 the JAX package `geo4d_tpu`: a fresh interpreter in which Pillow cannot be
 imported runs the runtime path, `reconstruct` on the tiny preset from frames
 to an aligned scene, then the inference CLI from a directory of PNG frames
-to a results directory and the evaluation CLI on a synthetic Sintel
-sequence, and checks what is loaded; it then imports every module of the
-port and checks again."""
+to a results directory, loads a directory of JPEG frames (the decoder of
+data/jpeg.py) and runs the evaluation CLI on a synthetic Sintel sequence,
+and checks what is loaded; it then imports every module of the port (among
+them data/jpeg.py, data/preprocess.py and geometry/warp.py) and checks
+again."""
 
 import os
 import subprocess
@@ -13,7 +15,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import os, pkgutil, importlib, struct, sys, tempfile
+import os, pkgutil, importlib, shutil, struct, sys, tempfile
 sys.modules["PIL"] = None      # import PIL raises: the port must not need it
 import numpy as np
 import torch
@@ -28,6 +30,8 @@ import geo4d_tpu_torch
 from geo4d_tpu_torch.alignment.optimizer import AlignerConfig
 from geo4d_tpu_torch.cli import evaluate, infer
 from geo4d_tpu_torch.data.images import write_png
+from geo4d_tpu_torch.data.video import load_image_dir
+FIXTURES = os.path.join("tests", "fixtures", "torch_inputs")
 from geo4d_tpu_torch.models.presets import init_random_, tiny
 from geo4d_tpu_torch.pipeline.inference import InferenceConfig, reconstruct
 
@@ -46,6 +50,12 @@ with tempfile.TemporaryDirectory() as tmp:
                 "--tiny", "--device", "cpu", "--height", "32", "--width", "32",
                 "--video_length", "4", "--stride", "2", "--ddim_steps", "1", "--n_iter", "4"])
     assert os.path.exists(os.path.join(tmp, "out", "clip", "clip", "pred_traj.txt"))
+    os.makedirs(os.path.join(tmp, "jpeg"))
+    for name in os.listdir(FIXTURES):
+        if name.endswith(".jpg"):
+            shutil.copy(os.path.join(FIXTURES, name), os.path.join(tmp, "jpeg", name))
+    jpeg_frames, _ = load_image_dir(os.path.join(tmp, "jpeg"), (64, 32))
+    assert jpeg_frames.shape == (5, 32, 64, 3)
     # a Sintel sequence: PNG frames, .dpt depths, .cam cameras
     dirs = [os.path.join(tmp, "sintel", "training", d, "alley_2")
             for d in ("final", "depth", "camdata_left")]

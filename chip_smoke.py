@@ -75,12 +75,36 @@ the final `ok` line):
    align_reference (7) also runs the host init chain (numpy inputs) and the
    aligner with its rigid-flow term (weight 0.1, target flows from the
    ground truth), each on the card against the CPU.
+12. train: the training CLI (geo4d_tpu_torch.cli.train.main) at full width
+   (flagship, random-normal weights) on two seeded 16x256x576 .npz shards
+   written to a temporary directory: 3 steps of pc_ray_cross_depth at batch
+   1, the CLI's defaults otherwise. Losses finite, metrics.jsonl has a row
+   per step, ckpt_final loads into a UNet; K1-K3 and their backward kernels
+   K1b-K3b launched, no plain version on a CUDA tensor; prints the free
+   disk, the first and steady step times, batch building against the train
+   step, and peak memory; the checkpoints are deleted. From here on cuDNN
+   runs its deterministic algorithms.
+13. vae_train: one generator and one discriminator step of the flagship RGB
+   VAE and a PatchGAN on 2 frames at 256x576 (disc_start 0): K1b at the
+   two-pass shapes of K1.
+14. backward: every (backward kernel, shape) of phases 12-13 against its
+   plain backward on a seeded cotangent (relative L2 of each gradient at
+   most BWD_REL_L2) and a second launch (bit for bit), timed warm and cold
+   beside its bound and the library call's backward (F.group_norm, SDPA
+   through torch.autograd), with its launches per training step.
+15. train_repeat: one full-width training step run twice from the same
+   state and batch: loss and state repeat bit for bit.
+16. train_reference: one tiny-preset step, bf16 on the card against float32
+   on the CPU (loss and gradient), and the tiny CLI's 2 + resumed 1 steps
+   against 3 uninterrupted steps (the same step-3 loss).
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The second-to-last line is a JSON object with one entry per kernel (the
+backward kernels from phases 12 and 14); the last line is
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --shapes-to FILE      # also save phase 5's shapes
     python3 chip_smoke.py --shapes-only FILE    # phases 1-2 and 5 only
+    python3 chip_smoke.py --train-only          # phases 1-2 and 12-16 only
 
 `--shapes-only` times the saved (kernel, shape, launches) list through the
 `geo4d_tpu_torch` beside this script; a copy of the script in an unpacked
@@ -141,7 +165,7 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fi
                         "torch_inputs")
 # nothing of these may be loaded by the end of the run; Pillow is also made
 # unimportable before the port is imported
-FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "cv2", "geo4d_tpu", "PIL")
+FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "geo4d_tpu", "PIL")
 PROMPT = "Output a video that assigns each 3D location in the world a consistent color."
 
 
@@ -1204,16 +1228,440 @@ def align_reference_phase(dev):
           flush=True)
 
 
+# ---------------- training (phases 12-16) ----------------
+
+# (name in the kernels line, source, TPU kernel whose backward it is)
+BWD_KERNELS = {
+    "group_norm": ("group_norm_backward", "geo4d_tpu_torch/csrc/group_norm.cu",
+                   "geo4d_tpu/ops/group_norm.py:101, :140, :168 (backward; the JAX package "
+                   "differentiates its XLA path, no TPU backward kernel)"),
+    "flash_attention": ("flash_attention_backward", "geo4d_tpu_torch/csrc/flash_attention_bwd.cu",
+                        "geo4d_tpu/ops/flash_attention.py:70 (backward; the JAX package "
+                        "differentiates its XLA path, no TPU backward kernel)"),
+    "temporal_attention": ("temporal_attention_backward",
+                           "geo4d_tpu_torch/csrc/temporal_attention.cu",
+                           "geo4d_tpu/ops/temporal_attention.py:85 (backward; the JAX package "
+                           "differentiates its XLA path, no TPU backward kernel)"),
+}
+# a backward kernel (bf16 operands, f32 sums) against its plain backward in
+# float32 on the same inputs: relative L2 of each gradient
+BWD_REL_L2 = 1e-2
+# one training step of the tiny preset, bf16 on the card against float32 on
+# the CPU with the same weights, batch and draws: the loss (relative) and the
+# whole gradient (relative L2)
+TRAIN_REF_LOSS_REL = 1e-2
+TRAIN_REF_GRAD_REL = 1e-2
+TRAIN_T, TRAIN_HW = 16, (256, 576)
+
+
+def check_backward_launches(what, stats, need=KERNELS):
+    """Fails unless every backward kernel in `need` launched since the
+    counts were reset; returns the backward launches."""
+    launches = {k: s.backward_launches for k, s in stats.items()}
+    print(f"{what}: backward launches {json.dumps(launches)}", flush=True)
+    for k in need:
+        if launches[k] == 0:
+            raise AssertionError(f"{what}: backward kernel of {k} was not launched")
+    return launches
+
+
+def write_shards(root, n, t, hw, seed):
+    """n seeded .npz clips in cli/train.py's data layout (float32)."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        shape = (t, *hw)
+        np.savez(os.path.join(root, f"clip_{i}.npz"),
+                 video=rng.uniform(-1, 1, (*shape, 3)).astype(np.float32),
+                 normed_allpts=rng.normal(0, 0.5, (*shape, 3)).astype(np.float32),
+                 plucker_raymap=rng.normal(0, 0.5, (*shape, 3)).astype(np.float32),
+                 plucker_cross=rng.normal(0, 0.5, (*shape, 3)).astype(np.float32),
+                 inverse_depth=rng.uniform(0, 1, (*shape, 1)).astype(np.float32), fps=24)
+
+
+def train_phase(dev):
+    """cli/train.main at full width (flagship, random-normal weights) on two
+    seeded 16 x 256 x 576 shards: 3 steps of pc_ray_cross_depth at batch 1,
+    the CLI's defaults otherwise. Returns the forward and backward launches
+    per (kernel, shape) of the run and its step count."""
+    from geo4d_tpu_torch.cli import train
+    from geo4d_tpu_torch.models.checkpoint import load_unet_weights
+    from geo4d_tpu_torch.models.unet3d import UNet3D
+
+    stats = kernel_stats()
+    steps = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        du = shutil.disk_usage(tmp)
+        print(f"train: free disk {du.free} bytes of {du.total} (the f32 EMA checkpoint is "
+              f"~5.8 GB)", flush=True)
+        data, run = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        write_shards(data, 2, TRAIN_T, TRAIN_HW, seed=0)
+        print(f"train: two shards of {TRAIN_T}x{TRAIN_HW[0]}x{TRAIN_HW[1]} written "
+              f"({os.path.getsize(os.path.join(data, 'clip_0.npz'))} bytes each) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for st in stats.values():
+            st.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = train.main(["--data_dir", data, "--out_dir", run, "--steps", str(steps),
+                          "--batch_size", "1", "--modality", "pc_ray_cross_depth"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        del out["state"]
+        check_path_launches("train", stats)
+        check_backward_launches("train", stats)
+        fwd = {k: dict(st.by_shape) for k, st in stats.items()}
+        bwd = {k: dict(st.backward_by_shape) for k, st in stats.items()}
+        if not (len(out["losses"]) == steps and np.isfinite(out["losses"]).all()):
+            raise AssertionError(f"train: losses {out['losses']}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if [r["step"] for r in rows if "loss_simple" in r] != list(range(steps)):
+            raise AssertionError(f"train: metrics.jsonl rows {rows}")
+        t1 = time.perf_counter()
+        with torch.device("meta"):
+            unet = UNet3D(dtype=torch.bfloat16)
+        unet.to_empty(device=dev)
+        load_unet_weights(unet, os.path.join(run, "ckpt_final"))
+        if not all(bool(torch.isfinite(p).all()) for p in unet.parameters()):
+            raise AssertionError("train: ckpt_final holds non-finite weights")
+        ckpt_bytes = os.path.getsize(os.path.join(run, "ckpt_final"))
+        del unet
+        load_s = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    step_s = [sum(t) for t in zip(out["build_s"], out["forward_backward_s"], out["optimizer_s"])]
+    print(f"train: losses {out['losses']}; wall {wall:.3f} s (model build, text context, "
+          f"{steps} steps, checkpoint); per step (device synchronised around each stage): "
+          f"first {step_s[0]:.4f} s, steady {statistics.mean(step_s[1:]):.4f} s; batch build "
+          f"{out['build_s']} s against UNet forward + backward {out['forward_backward_s']} s "
+          f"(AdamW + EMA {out['optimizer_s']} s); peak memory allocated {peak} bytes; "
+          f"ckpt_final {ckpt_bytes} bytes loaded into a UNet in {load_s:.2f} s (checkpoints "
+          f"deleted)", flush=True)
+    return fwd, bwd, steps
+
+
+def vae_train_phase(dev):
+    """One generator step and one discriminator step of the flagship RGB VAE
+    (random-normal weights) and a PatchGAN on 2 frames at 256x576 with
+    disc_start=0. Returns the backward launches per (kernel, shape)."""
+    from geo4d_tpu_torch.models.autoencoder import AutoencoderKL
+    from geo4d_tpu_torch.models.presets import init_random_
+    from geo4d_tpu_torch.ops import group_norm as gn
+    from geo4d_tpu_torch.training.step import Draws
+    from geo4d_tpu_torch.training.vae import (PatchDiscriminator, VAETrainConfig,
+                                              make_vae_train_steps)
+
+    with torch.device("meta"):
+        vae = AutoencoderKL(with_adaptor=False, dtype=torch.bfloat16)
+        disc = PatchDiscriminator(3, dtype=torch.bfloat16)
+    init_random_(vae, dev, seed=7)
+    init_random_(disc, dev, seed=8)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.rand((2, *TRAIN_HW, 3), generator=g, device=dev) * 2 - 1
+    g_step, d_step, init_state = make_vae_train_steps(vae, disc, VAETrainConfig(disc_start=0))
+    state = init_state()
+    stats = kernel_stats()
+    for st in stats.values():
+        st.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, gm = g_step(state, x, Draws.seeded([0, 0], dev))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, dm = d_step(state, x, Draws.seeded([0, 1], dev))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check_path_launches("vae_train", stats, need=("group_norm",))
+    check_backward_launches("vae_train", stats, need=("group_norm",))
+    metrics = {k: float(v) for k, v in {**gm, **dm}.items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"vae_train: non-finite metrics {metrics}")
+    bwd = dict(stats["group_norm"].backward_by_shape)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    two_pass = [k for k in bwd if gn.plan(k[0], k[1], k[2], 32, sms)[0] == "two_pass"]
+    if not two_pass:
+        raise AssertionError("vae_train: K1b ran at no shape of K1's two-pass path")
+    print(f"vae_train: generator step {t1 - t0:.4f} s, discriminator step {t2 - t1:.4f} s "
+          f"(first calls); metrics {json.dumps(metrics)}; K1b shapes {len(bwd)}, of K1's "
+          f"two-pass path {len(two_pass)} (e.g. {two_pass[0]}); peak memory allocated "
+          f"{torch.cuda.max_memory_allocated(dev)} bytes", flush=True)
+    del vae, disc, state, x
+    torch.cuda.empty_cache()
+    return {"group_norm": bwd}
+
+
+def bwd_bound_ms(name, key):
+    """Least time of one backward call at shape `key`: each input read once
+    (x and dy, or q, k, v, o, dO and the log-sum-exp) and each gradient
+    written once, against the operations the backward needs: GroupNorm 10
+    f32 operations per element (21 with the SiLU); attention five products
+    (S, dP, dV, dQ, dK: 10 N_q N_k d), bf16 for K2b, f32 for K3b (it
+    multiplies on the f32 pipes)."""
+    if name == "group_norm":
+        n, s, c, silu = key
+        elems = n * s * c
+        return _bound(6 * elems + 16 * c, elems * (21 if silu else 10), PEAK_F32)
+    if name == "flash_attention":
+        b, nq, nk, h = key
+        return _bound(2 * 64 * h * b * (4 * nq + 4 * nk) + 4 * b * h * nq,
+                      10 * b * h * nq * nk * 64, PEAK_BF16)
+    p, n, c, heads = key
+    return _bound(2 * 7 * p * n * c, 10 * p * n * n * c, PEAK_F32)
+
+
+def bwd_calls(name, key, g, dev):
+    """(kernel, plain backward, library backward or None) on seeded inputs
+    and a seeded cotangent at one shape. The library backward is one PyTorch
+    call's backward through torch.autograd (F.group_norm without the SiLU;
+    scaled_dot_product_attention under the flash backend), its forward run
+    once outside the timing."""
+    import torch.nn.functional as F
+    from geo4d_tpu_torch.ops import flash_attention as fa
+    from geo4d_tpu_torch.ops import group_norm as gn
+    from geo4d_tpu_torch.ops import temporal_attention as ta
+
+    args = make_args(name, key, g, dev)
+    if name == "group_norm":
+        x, gamma, beta, groups, eps, silu = args
+        dy = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+        _, part = gn.group_norm_forward(x, gamma, beta, groups, eps, silu)
+        _, mean, rstd = gn.group_norm_plain_with_stats(x, gamma, beta, groups, eps, silu)
+        lib = None
+        if not silu:
+            xl = x.permute(0, 2, 1).detach().requires_grad_()
+            g16, b16 = (t.to(x.dtype).requires_grad_() for t in (gamma, beta))
+            yl = F.group_norm(xl, groups, g16, b16, eps)
+            dyl = dy.permute(0, 2, 1)
+
+            def lib():
+                return torch.autograd.grad(yl, (xl, g16, b16), dyl, retain_graph=True)
+        return (lambda: gn.group_norm_backward(x, dy, gamma, beta, part, groups, eps, silu),
+                lambda: gn.group_norm_backward_plain(x, dy, gamma, beta, mean, rstd, groups, silu),
+                lib)
+    if name == "flash_attention":
+        q, k, v = args
+        o, lse = fa.flash_attention_forward(q, k, v, with_lse=True)
+        do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+        hq, hk, hv = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(hq, hk, hv)
+        dol = do.transpose(1, 2)
+        return (lambda: fa.flash_attention_backward(q, k, v, o, do, lse),
+                lambda: fa.flash_attention_backward_plain(q, k, v, o, do,
+                                                          fa.log_sum_exp_plain(q, k)),
+                lambda: torch.autograd.grad(ol, (hq, hk, hv), dol, retain_graph=True))
+    q, k, v, heads = args
+    p, n, c = q.shape
+    do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    hq, hk, hv = (t.view(p, n, heads, c // heads).transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(hq, hk, hv)
+    dol = do.view(p, n, heads, c // heads).transpose(1, 2)
+    return (lambda: ta.temporal_attention_backward(q, k, v, do, heads),
+            lambda: ta.temporal_attention_backward_plain(q, k, v, do, heads),
+            lambda: torch.autograd.grad(ol, (hq, hk, hv), dol, retain_graph=True))
+
+
+def backward_phase(dev, train_shapes, steps, vae_shapes):
+    """Every (backward kernel, shape) that the training steps of `train`
+    (launches per step: the run's count / steps) and the VAE GAN step of
+    `vae_train` launched: checked against its plain backward on a seeded
+    cotangent (relative L2 of each gradient <= BWD_REL_L2) and a second launch
+    (bit for bit), timed warm and cold beside its bound and the library
+    call's backward. Returns each kernel's summary row and per-step totals."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    results, totals = {}, {}
+    for name in KERNELS:
+        rows = [(key, n / steps, "train") for key, n in train_shapes.get(name, {}).items()]
+        rows += [(key, n, "vae") for key, n in vae_shapes.get(name, {}).items()
+                 if key not in train_shapes.get(name, {})]
+        rows.sort(key=lambda r: -r[1])
+        t = totals.setdefault(name, {"launches_per_step": 0.0, "total_ms": 0.0,
+                                     "total_cold_ms": 0.0, "total_bound_ms": 0.0,
+                                     "total_library_ms": 0.0, "total_ms_with_library": 0.0})
+        for i, (key, per_step, source) in enumerate(rows):
+            kernel, plain, lib = bwd_calls(name, key, g, dev)
+            got = kernel()
+            repeat = all(torch.equal(a, b) for a, b in zip(got, kernel()))
+            want = plain()
+            torch.cuda.synchronize()
+            errs = [float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+                    for a, b in zip(got, want)]
+            max_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+            del got, want
+            if not repeat:
+                raise AssertionError(f"backward {name} {label(name, key)}: two launches differ")
+            if not max(errs) <= BWD_REL_L2:
+                raise AssertionError(f"backward {name} {label(name, key)}: relative L2 "
+                                     f"{errs} > {BWD_REL_L2}")
+            row = {"max_abs_err": max_abs, "rel_l2": max(errs), "bound": bwd_bound_ms(name, key),
+                   "ms": median_ms(kernel), "cold_ms": median_ms(kernel, cold=True),
+                   "library_ms": median_ms(lib) if lib is not None else None,
+                   "plain_ms": median_ms(plain, reps=5, warmup=1) if i == 0 else None}
+            b, kind = row["bound"]
+            if source == "train":
+                t["launches_per_step"] += per_step
+                t["total_ms"] += per_step * row["ms"]
+                t["total_cold_ms"] += per_step * row["cold_ms"]
+                t["total_bound_ms"] += per_step * b
+                if row["library_ms"] is not None:
+                    t["total_library_ms"] += per_step * row["library_ms"]
+                    t["total_ms_with_library"] += per_step * row["ms"]
+            print(f"backward {name:18s} {label(name, key):40s} {source} launches_per_step="
+                  f"{per_step:g} ms={row['ms']:.4f} cold_ms={row['cold_ms']:.4f} "
+                  f"bound_ms={b:.4f} ({kind}) share_cold={b / row['cold_ms']:.3f} "
+                  f"library_ms={fmt(row['library_ms'])} plain_ms={fmt(row['plain_ms'])} "
+                  f"rel_l2={row['rel_l2']:.3e} max_abs={max_abs:.3e} repeat_equal=True", flush=True)
+            r = results.setdefault(name, dict(row, shape=label(name, key)))
+            r["max_abs_err"] = max(r["max_abs_err"], max_abs)
+            del kernel, plain, lib
+            torch.cuda.empty_cache()
+        print(f"backward {name}: per training step {t['launches_per_step']:g} launches, "
+              f"sum launches x ms {t['total_ms']:.3f} (x cold_ms {t['total_cold_ms']:.3f}), "
+              f"x bound_ms {t['total_bound_ms']:.3f}, x library_ms {t['total_library_ms']:.3f} "
+              f"(kernel over the same shapes {t['total_ms_with_library']:.3f})", flush=True)
+    return results, totals
+
+
+def state_fingerprint(state):
+    """Integer sums of the bit patterns of every tensor of a TrainState."""
+    return [sum(int(t.view(torch.int32).sum(dtype=torch.int64)) for t in part.values())
+            for part in (state.params, state.exp_avg, state.exp_avg_sq, state.ema)]
+
+
+def train_repeat_phase(dev):
+    """One full-width training step (flagship, random-normal weights, one
+    16 x 256 x 576 pc_ray_cross_depth batch), run twice from the same state
+    and batch: the loss and every tensor of the state must repeat bit for
+    bit."""
+    from geo4d_tpu_torch.models.presets import flagship, init_random_
+    from geo4d_tpu_torch.training.modalities import build_batch
+    from geo4d_tpu_torch.training.step import (Draws, TrainConfig, create_train_state,
+                                               make_train_step)
+
+    model = init_random_(flagship(), dev, seed=0).eval()
+    model.text_encoder = None
+    model.requires_grad_(False)
+    model.unet.requires_grad_(True)
+    g = torch.Generator(device=dev).manual_seed(12)
+    shape = (1, TRAIN_T, *TRAIN_HW)
+    raw = {k: torch.rand((*shape, c), generator=g, device=dev) * 2 - 1 for k, c in
+           (("video", 3), ("normed_allpts", 3), ("plucker_raymap", 3), ("plucker_cross", 3),
+            ("inverse_depth", 1))}
+    raw["fps"] = torch.tensor([24], dtype=torch.int32, device=dev)
+    prompt = torch.randn((1, 77, 1024), generator=g, device=dev)
+    batch = build_batch("pc_ray_cross_depth", model, raw, Draws.seeded([1, 0], dev), prompt,
+                        torch.zeros_like(prompt))
+    step_fn = make_train_step(model.unet, model.schedule, TrainConfig())
+    runs = []
+    for _ in range(2):
+        state = create_train_state(model.unet)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, Draws.seeded([1, 1], dev))
+        torch.cuda.synchronize()
+        runs.append((float(m["loss_simple"]), state_fingerprint(state),
+                     time.perf_counter() - t0))
+        del state
+    print(f"train_repeat: loss {runs[0][0]!r} and {runs[1][0]!r}; state fingerprints "
+          f"{runs[0][1]} and {runs[1][1]}; step {runs[0][2]:.4f} s and {runs[1][2]:.4f} s",
+          flush=True)
+    if runs[0][:2] != runs[1][:2]:
+        raise AssertionError("train_repeat: the two steps from the same state differ")
+    del model, batch
+    torch.cuda.empty_cache()
+
+
+def train_reference_phase(dev):
+    """The tiny preset: one step's loss and gradient in bf16 on the card
+    (kernels) against float32 on the CPU (plain versions), same weights,
+    batch and draws; then cli/train.main --tiny on the card for 3 steps,
+    against 2 steps, a checkpoint and a resumed third."""
+    from geo4d_tpu_torch.cli import train
+    from geo4d_tpu_torch.models.presets import tiny
+    from geo4d_tpu_torch.training.step import GivenDraws, TrainConfig, diffusion_loss
+
+    ref = tiny(temporal_length=4, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        for p in ref.parameters():
+            p.normal_(0.0, 0.05, generator=gen)
+    card = tiny(temporal_length=4, dtype=torch.bfloat16, device="meta")
+    card.to_empty(device=dev)
+    card.load_state_dict(ref.state_dict())
+    rng = np.random.default_rng(13)
+    batch = {"z0": rng.normal(size=(2, 4, 4, 8, 16)), "c_concat": rng.normal(size=(2, 4, 4, 8, 4)),
+             "context": rng.normal(size=(2, 77 + 64, 64))}
+    batch = {k: v.astype(np.float32) for k, v in batch.items()}
+    draws = [np.array([100, 700]), rng.normal(size=(2, 4, 4, 8, 16)).astype(np.float32)]
+    out = {}
+    stats = kernel_stats()
+    for st in stats.values():
+        st.reset()
+    for name, model, device in (("cpu", ref, torch.device("cpu")), ("card", card, dev)):
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        tb["fs"] = torch.tensor([24, 8], device=device)
+        loss, _ = diffusion_loss(model.unet, model.schedule, tb, GivenDraws(draws, device),
+                                 TrainConfig(temporal_length=4))
+        grads = torch.autograd.grad(loss, list(model.unet.parameters()), allow_unused=True)
+        out[name] = (float(loss.detach()), torch.cat([(torch.zeros(p.numel()) if gr is None else
+                                              gr.float().cpu().flatten())
+                                             for gr, p in zip(grads, model.unet.parameters())]))
+    check_backward_launches("train_reference", stats, need=("group_norm", "temporal_attention"))
+    loss_rel = abs(out["card"][0] / out["cpu"][0] - 1)
+    grad_rel = float((out["card"][1] - out["cpu"][1]).norm() / out["cpu"][1].norm())
+    print(f"train_reference: tiny step, card bf16 vs CPU f32: loss {out['card'][0]:.6f} vs "
+          f"{out['cpu'][0]:.6f} (relative {loss_rel:.3e}, limit {TRAIN_REF_LOSS_REL}); gradient "
+          f"relative L2 {grad_rel:.3e} (limit {TRAIN_REF_GRAD_REL})", flush=True)
+    if not (loss_rel <= TRAIN_REF_LOSS_REL and grad_rel <= TRAIN_REF_GRAD_REL):
+        raise AssertionError("train_reference: the card's step disagrees with the CPU's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_shards(os.path.join(tmp, "data"), 2, 4, (64, 64), seed=1)
+        common = ["--data_dir", os.path.join(tmp, "data"), "--tiny", "--height", "64",
+                  "--width", "64", "--video_length", "4", "--ckpt_every", "2"]
+        full = train.main(common + ["--out_dir", os.path.join(tmp, "a"), "--steps", "3"])
+        train.main(common + ["--out_dir", os.path.join(tmp, "b"), "--steps", "2"])
+        resumed = train.main(common + ["--out_dir", os.path.join(tmp, "b"), "--steps", "3",
+                                       "--resume"])
+    print(f"train_reference: tiny CLI on the card, 3 steps {full['losses']}; 2 + resumed 1: "
+          f"{resumed['losses']}", flush=True)
+    if resumed["losses"] != full["losses"][2:]:
+        raise AssertionError("train_reference: the resumed step-3 loss differs from the "
+                             "uninterrupted run's")
+
+
+def training_phases(dev):
+    """Phases 12-16; cuDNN is held to its deterministic algorithms, so that
+    a training step repeats bit for bit. Returns the backward kernels' rows
+    and totals and their launches in the train phase."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    _, train_bwd, steps = train_phase(dev)
+    launches = {k: sum(v.values()) for k, v in train_bwd.items()}
+    vae_bwd = vae_train_phase(dev)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        results, totals = backward_phase(dev, train_bwd, steps, vae_bwd)
+    train_repeat_phase(dev)
+    train_reference_phase(dev)
+    return results, totals, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of geo4d_tpu_torch on one GPU")
     ap.add_argument("--shapes-to", help="write the slice's launches per (kernel, shape) here")
     ap.add_argument("--shapes-only", help="time only the (kernel, shape) list in this file")
+    ap.add_argument("--train-only", action="store_true",
+                    help="phases 1-2 and the training phases 12-16 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
     sys.modules["PIL"] = None       # import PIL now raises: the port must not need Pillow
     dev = torch.device("cuda", 0)
+    torch.zeros((), device=dev)     # the allocator's memory statistics exist from here on
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
@@ -1239,6 +1687,11 @@ def main() -> int:
             totals = shapes_phase(dev, by_shape)
         print(json.dumps({"totals": totals}))
         return 0
+    if args.train_only:
+        results, totals, launches = training_phases(dev)
+        print(json.dumps({"backward": {k: dict(results[k], **totals[k], launches=launches[k])
+                                       for k in results}}))
+        return 0
     with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         results = kernel_phase(dev)
     launches, by_shape, model, text_ctx, uncond_text_ctx, scene = slice_phase(dev)
@@ -1261,6 +1714,7 @@ def main() -> int:
         for name, opts in ATTENTION_OPTIONS.items():
             reference_phase(dev, name, **opts)
     align_reference_phase(dev)
+    bwd_results, bwd_totals, bwd_launches = training_phases(dev)
 
     foreign = sorted(m for m, mod in sys.modules.items()
                      if mod is not None and m.split(".")[0] in FOREIGN_ROOTS)
@@ -1276,7 +1730,14 @@ def main() -> int:
          "plain_ms": results[name]["plain_ms"], "bound_ms": results[name]["bound"][0],
          "bound_by": results[name]["bound"][1], "library_ms": results[name]["library_ms"],
          **totals[name]}
-        for name, (src, tpu) in KERNELS.items()]}))
+        for name, (src, tpu) in KERNELS.items()] + [
+        {"name": bname, "route": "cuda", "source": src, "replaces": tpu,
+         "launches": bwd_launches[name], "max_abs_err": bwd_results[name]["max_abs_err"],
+         "shape": bwd_results[name]["shape"], "ms": bwd_results[name]["ms"],
+         "cold_ms": bwd_results[name]["cold_ms"], "plain_ms": bwd_results[name]["plain_ms"],
+         "bound_ms": bwd_results[name]["bound"][0], "bound_by": bwd_results[name]["bound"][1],
+         "library_ms": bwd_results[name]["library_ms"], **bwd_totals[name]}
+        for name, (bname, src, tpu) in BWD_KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

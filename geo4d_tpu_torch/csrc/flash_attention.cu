@@ -30,7 +30,9 @@
 //     (the S accumulator layout is the A fragment layout) and V read from
 //     shared memory through the MN-major (transposed) descriptor;
 //   * the epilogue divides by the row sum and writes bf16 straight into
-//     (B, Nq, H, D), skipping rows >= Nq.
+//     (B, Nq, H, D), skipping rows >= Nq; when given a pointer it also
+//     writes the row's log-sum-exp of the scaled logits (natural log, f32,
+//     (B, H, Nq)), which the backward (csrc/flash_attention_bwd.cu) reads.
 // Keys >= Nk in the last tile are masked to -inf. Every block sums its keys
 // in one fixed order (no split over blocks, no atomics): a launch on the
 // same input gives the same bits.
@@ -214,7 +216,7 @@ __global__ void __launch_bounds__(kThreads, Cfg<BK>::kOwnsSM ? 1 : 2)
 flash_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                  int Nq, int Nk, int H, float scale_log2) {
+                  float* __restrict__ lse, int Nq, int Nk, int H, float scale_log2) {
   constexpr uint32_t kTileBytes = BK * kRowBytes;
   constexpr int kStages = Cfg<BK>::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -332,6 +334,9 @@ flash_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int j = 0; j < 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
               __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv, oacc[4 * j + 2 * r + 1] * inv);
+        // m is the row max of the logits in log2 units: lse = (m + log2 l) ln 2
+        if (lse != nullptr && c == 0)
+          lse[((size_t)b * H + h) * Nq + row] = (m[r] + log2f(l[r])) * 0.6931471805599453f;
       }
     }
   }
@@ -372,8 +377,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int N, int H, int rows) 
 }
 
 template <int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Nq, int Nk, int H,
-           float scale_log2, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Nq,
+           int Nk, int H, float scale_log2, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(&tm_q, q, B, Nq, H, kBQ) || !make_map(&tm_k, k, B, Nk, H, BK) ||
       !make_map(&tm_v, v, B, Nk, H, BK))
@@ -384,21 +389,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Nq, 
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Nq + kBQ - 1) / kBQ, H, B);
   flash_attn_kernel<BK><<<grid, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, (__nv_bfloat16*)o,
-                                                          Nq, Nk, H, scale_log2);
+                                                          lse, Nq, Nk, H, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bk: keys per K/V tile, 16, 64 or 128 (see ops/flash_attention.py `plan`)
-extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                               int Nq, int Nk, int H, float scale, int bk, void* stream) {
+// bk: keys per K/V tile, 16, 64 or 128 (see ops/flash_attention.py `plan`);
+// lse: (B, H, Nq) f32 log-sum-exp output, or null (inference)
+extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, void* lse,
+                               int B, int Nq, int Nk, int H, float scale, int bk, void* stream) {
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   switch (bk) {
-    case 16: return launch<16>(q, k, v, o, B, Nq, Nk, H, scale_log2, st);
-    case 64: return launch<64>(q, k, v, o, B, Nq, Nk, H, scale_log2, st);
-    case 128: return launch<128>(q, k, v, o, B, Nq, Nk, H, scale_log2, st);
+    case 16: return launch<16>(q, k, v, o, l, B, Nq, Nk, H, scale_log2, st);
+    case 64: return launch<64>(q, k, v, o, l, B, Nq, Nk, H, scale_log2, st);
+    case 128: return launch<128>(q, k, v, o, l, B, Nq, Nk, H, scale_log2, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

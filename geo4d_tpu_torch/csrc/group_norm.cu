@@ -27,6 +27,21 @@
 // x is cut into (n, S-tile) blocks so that a per-clip norm with N = 1 (only
 // G (n, group) pairs) spreads over every SM. Every sum is taken in a fixed
 // order (no atomics): a launch on the same input gives the same bits.
+//
+// Backward (K1b, `gn_backward`): dx, dgamma and dbeta from x, dy and the
+// forward's per-(n, tile, group) partial sums, which it folds with the
+// forward's own `fold_stats` (the same mean and rstd bits). No TPU kernel
+// had a backward (the JAX package differentiates its XLA path); the
+// algebra is GroupNorm's: with xhat = (x - mean) * rstd and z = xhat * gamma
+// + beta recomputed, dz = dy (times sigma(z) (1 + z (1 - sigma(z))) with the
+// SiLU), dbeta = sum dz, dgamma = sum dz * xhat, and per (n, group) the means
+// c1 of dz * gamma * xhat and c2 of dz * gamma give dx = rstd (dz gamma - c2
+// - xhat c1). Bound: memory, like the forward (read x and dy, write dx: 6
+// bytes per element, and x and dy are read twice). Four launches on the
+// forward's two-pass tiling: pass 1 writes per-(n, tile, channel) sums of dz
+// and dz * xhat, a fold adds the tiles per (n, channel) in order, a third
+// adds the images per channel (dgamma, dbeta), pass 2 writes dx. Every sum
+// is taken in a fixed order: the backward repeats bit for bit too.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -265,6 +280,180 @@ gn_resident_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
     *reinterpret_cast<uint4*>(yn + (size_t)row * C) = apply8(sx[(row - row0) * V + v], a, b, silu);
 }
 
+// thread vector v's 8 channels: gamma, beta, and their group's mean and rstd
+__device__ __forceinline__ void channel_params(const float* gamma, const float* beta,
+                                               const float* stat, int v, int C, int G, float* g8,
+                                               float* b8, float* mu8, float* rs8) {
+  const int cg = C / G;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = v * 8 + j, g = c / cg;
+    g8[j] = gamma[c];
+    b8[j] = beta[c];
+    mu8[j] = stat[g];
+    rs8[j] = stat[G + g];
+  }
+}
+
+// xhat and dz of 8 channels from x and dy
+__device__ __forceinline__ void backward8(const uint4& ux, const uint4& udy, const float* g8,
+                                          const float* b8, const float* mu8, const float* rs8,
+                                          int silu, float* xhat, float* dz) {
+  float dy[8];
+  unpack8(ux, xhat);
+  unpack8(udy, dy);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    xhat[j] = (xhat[j] - mu8[j]) * rs8[j];
+    float d = dy[j];
+    if (silu) {
+      const float z = xhat[j] * g8[j] + b8[j];
+      const float sig = 1.f / (1.f + __expf(-z));
+      d = d * sig * (1.f + z * (1.f - sig));
+    }
+    dz[j] = d;
+  }
+}
+
+// grid (T, N); block as in gn_stats_kernel. Folds the forward's partial sums
+// (T_fwd tiles) into mean | rstd, then writes the sums of dz and dz * xhat of
+// its tile per channel: pdz[(n * T + tile) * C + c], pdzx likewise. Dynamic
+// shared memory: mean[G] | rstd[G], the fold's 2 * blockDim.x floats, then
+// R * 2 * C floats for the row reduction.
+__global__ void gn_bwd_stats_kernel(const __nv_bfloat16* __restrict__ x,
+                                    const __nv_bfloat16* __restrict__ dy,
+                                    const float* __restrict__ gamma,
+                                    const float* __restrict__ beta,
+                                    const float* __restrict__ part1,
+                                    const float* __restrict__ part2, float* __restrict__ pdz,
+                                    float* __restrict__ pdzx, int S, int C, int G, int T_fwd,
+                                    int T, int rows_per_tile, float eps, int silu) {
+  extern __shared__ float sm[];
+  float* stat = sm;
+  float* red = sm + 2 * G + 2 * blockDim.x;
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int V = C / 8, R = blockDim.x / V, v = threadIdx.x % V, r = threadIdx.x / V;
+  fold_stats(part1, part2, n, S, C, G, T_fwd, eps, stat + 2 * G, stat);
+  float g8[8], b8[8], mu8[8], rs8[8];
+  channel_params(gamma, beta, stat, v, C, G, g8, b8, mu8, rs8);
+
+  const int row0 = tile * rows_per_tile;
+  const int row1 = min(S, row0 + rows_per_tile);
+  const size_t base = (size_t)n * S * C + v * 8;
+  float a1[8] = {0.f}, a2[8] = {0.f};
+  for (int row = row0 + r; row < row1; row += R) {
+    const size_t o = base + (size_t)row * C;
+    float xhat[8], dz[8];
+    backward8(*reinterpret_cast<const uint4*>(x + o), *reinterpret_cast<const uint4*>(dy + o),
+              g8, b8, mu8, rs8, silu, xhat, dz);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      a1[j] += dz[j];
+      a2[j] += dz[j] * xhat[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    red[r * 2 * C + v * 8 + j] = a1[j];
+    red[r * 2 * C + C + v * 8 + j] = a2[j];
+  }
+  __syncthreads();
+  const size_t out = ((size_t)n * T + tile) * C;
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) {
+    float s = red[i];
+    for (int k = 1; k < R; ++k) s += red[k * 2 * C + i];
+    if (i < C) pdz[out + i] = s;
+    else pdzx[out + i - C] = s;
+  }
+}
+
+// grid (ceil(C / 128), N), 128 threads: sdz[n * C + c] = sum over the T
+// tiles of pdz in order (neighbouring threads on neighbouring channels), and
+// sdzx likewise
+__global__ void gn_bwd_fold_kernel(const float* __restrict__ pdz, const float* __restrict__ pdzx,
+                                   float* __restrict__ sdz, float* __restrict__ sdzx, int C,
+                                   int T) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x, n = blockIdx.y;
+  if (c >= C) return;
+  float s1 = 0.f, s2 = 0.f;
+  const size_t base = (size_t)n * T * C + c;
+  for (int t = 0; t < T; ++t) {
+    s1 += pdz[base + (size_t)t * C];
+    s2 += pdzx[base + (size_t)t * C];
+  }
+  sdz[(size_t)n * C + c] = s1;
+  sdzx[(size_t)n * C + c] = s2;
+}
+
+// grid ceil(C / 128), 128 threads: dbeta[c] = sum over n of sdz, dgamma of
+// sdzx, in order
+__global__ void gn_bwd_params_kernel(const float* __restrict__ sdz,
+                                     const float* __restrict__ sdzx, float* __restrict__ dgamma,
+                                     float* __restrict__ dbeta, int N, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float s1 = 0.f, s2 = 0.f;
+  for (int n = 0; n < N; ++n) {
+    s1 += sdz[(size_t)n * C + c];
+    s2 += sdzx[(size_t)n * C + c];
+  }
+  dbeta[c] = s1;
+  dgamma[c] = s2;
+}
+
+// grid (T, N); block as in gn_stats_kernel. Dynamic shared memory: mean[G] |
+// rstd[G] | c1[G] | c2[G], then the fold's 2 * blockDim.x floats.
+__global__ void gn_bwd_apply_kernel(const __nv_bfloat16* __restrict__ x,
+                                    const __nv_bfloat16* __restrict__ dy,
+                                    const float* __restrict__ gamma,
+                                    const float* __restrict__ beta,
+                                    const float* __restrict__ part1,
+                                    const float* __restrict__ part2,
+                                    const float* __restrict__ sdz,
+                                    const float* __restrict__ sdzx, __nv_bfloat16* __restrict__ dx,
+                                    int S, int C, int G, int T_fwd, int rows_per_tile, float eps,
+                                    int silu) {
+  extern __shared__ float sm[];
+  float* stat = sm;       // mean[G] | rstd[G]
+  float* cc = sm + 2 * G;  // c1[G] | c2[G]
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int V = C / 8, R = blockDim.x / V, v = threadIdx.x % V, r = threadIdx.x / V;
+  fold_stats(part1, part2, n, S, C, G, T_fwd, eps, sm + 4 * G, stat);
+  const int cg = C / G;
+  const float inv_count = (float)(1.0 / ((double)S * cg));
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = g * cg; c < (g + 1) * cg; ++c) {
+      s1 += sdzx[(size_t)n * C + c] * gamma[c];
+      s2 += sdz[(size_t)n * C + c] * gamma[c];
+    }
+    cc[g] = s1 * inv_count;
+    cc[G + g] = s2 * inv_count;
+  }
+  __syncthreads();
+  float g8[8], b8[8], mu8[8], rs8[8], c1[8], c2[8];
+  channel_params(gamma, beta, stat, v, C, G, g8, b8, mu8, rs8);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int g = (v * 8 + j) / cg;
+    c1[j] = cc[g];
+    c2[j] = cc[G + g];
+  }
+
+  const int row0 = tile * rows_per_tile;
+  const int row1 = min(S, row0 + rows_per_tile);
+  const size_t base = (size_t)n * S * C + v * 8;
+  for (int row = row0 + r; row < row1; row += R) {
+    const size_t o = base + (size_t)row * C;
+    float xhat[8], dz[8];
+    backward8(*reinterpret_cast<const uint4*>(x + o), *reinterpret_cast<const uint4*>(dy + o),
+              g8, b8, mu8, rs8, silu, xhat, dz);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dz[j] = rs8[j] * (dz[j] * g8[j] - c2[j] - xhat[j] * c1[j]);
+    *reinterpret_cast<uint4*>(dx + o) = pack8(dz);
+  }
+}
+
 // V = C / 8 channel vectors times as many rows as fit 512 threads (C <= 4096).
 int block_threads(int C) { return (C / 8) * (512 / (C / 8)); }
 
@@ -312,4 +501,39 @@ extern "C" int gn_resident(const void* x, const void* gamma, const void* beta, v
                   &G, &T, &rows_per_tile, &eps, &silu};
   return (int)cudaLaunchCooperativeKernel((const void*)gn_resident_kernel, dim3(T, N),
                                           dim3(threads), args, smem, (cudaStream_t)stream);
+}
+
+// K1b: the four launches of the backward on `T` tiles of `rows_per_tile`
+// rows (ops/group_norm.py `tiling`), reading the forward's partial sums
+// (T_fwd tiles). `scratch` holds 2 * N * T * C + 2 * N * C floats.
+extern "C" int gn_backward(const void* x, const void* dy, const void* gamma, const void* beta,
+                           const void* part1, const void* part2, void* scratch, void* dx,
+                           void* dgamma, void* dbeta, int N, int S, int C, int G, int T_fwd,
+                           int T, int rows_per_tile, float eps, int silu, void* stream) {
+  const int threads = block_threads(C);
+  const int R = threads / (C / 8);
+  cudaStream_t st = (cudaStream_t)stream;
+  float* pdz = (float*)scratch;
+  float* pdzx = pdz + (size_t)N * T * C;
+  float* sdz = pdzx + (size_t)N * T * C;
+  float* sdzx = sdz + (size_t)N * C;
+  const dim3 grid(T, N);
+  gn_bwd_stats_kernel<<<grid, threads, (2 * G + 2 * threads + R * 2 * C) * sizeof(float), st>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)dy, (const float*)gamma, (const float*)beta,
+      (const float*)part1, (const float*)part2, pdz, pdzx, S, C, G, T_fwd, T, rows_per_tile, eps,
+      silu);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gn_bwd_fold_kernel<<<dim3((C + 127) / 128, N), 128, 0, st>>>(pdz, pdzx, sdz, sdzx, C, T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gn_bwd_params_kernel<<<(C + 127) / 128, 128, 0, st>>>(sdz, sdzx, (float*)dgamma,
+                                                         (float*)dbeta, N, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gn_bwd_apply_kernel<<<grid, threads, (4 * G + 2 * threads) * sizeof(float), st>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)dy, (const float*)gamma, (const float*)beta,
+      (const float*)part1, (const float*)part2, sdz, sdzx, (__nv_bfloat16*)dx, S, C, G, T_fwd,
+      rows_per_tile, eps, silu);
+  return (int)cudaGetLastError();
 }

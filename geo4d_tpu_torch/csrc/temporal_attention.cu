@@ -55,6 +55,19 @@
 // Limits: N <= 32, Dh <= 128, Dh % 8 == 0, C % Dh == 0, 16-byte aligned
 // tensors. Instances: Dh <= 32, 64 or 128 (n8 tiles beyond Dh are skipped at
 // run time) x one or two 16-row tiles.
+//
+// Backward (K3b, `temporal_attention_bwd`): dq, dk and dv of the same jobs
+// for the cotangent dO, in the same layout. No TPU kernel had a backward
+// (the JAX package differentiates its XLA path). Bound: memory again (read
+// q, k, v, dO, write dq, dk, dv: 7 * P * N * C * 2 bytes against about 10 *
+// N * N * C flops), so the first version keeps the arithmetic simple: one
+// warp per (pixel, head) job, scalar f32 on bf16 tiles in shared memory
+// (rows padded to an odd number of words, so the lanes of one column hit
+// distinct banks). The warp recomputes the logits and the f32 softmax P
+// (N <= 32: the whole row at once), then dV = bf16(P)^T dO (the weights the
+// forward multiplied V by), dP = dO V^T, dS = P (dP - rowsum(dP P)),
+// dQ = dS K s and dK = dS^T Q s. No job reduces across another and each
+// sum runs in one order, so the kernel repeats bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -356,5 +369,140 @@ extern "C" int temporal_attention(const void* q, const void* k, const void* v, v
   fn<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)o, N, C, Dh, C / Dh, P * (C / Dh), stages, rs, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+constexpr int kBwdWarps = 4;
+
+// one job's tiles in shared memory: q, k, v, dO as N x (Dh + 2) bf16, then
+// S / P and dP / dS as N x (N + 1) f32
+__host__ __device__ inline size_t bwd_job_smem(int N, int Dh) {
+  return (size_t)4 * N * (Dh + 2) * 2 + (size_t)2 * N * (N + 1) * 4;
+}
+
+__global__ void __launch_bounds__(kBwdWarps * 32)
+temporal_attn_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                         __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int N, int C, int Dh, int heads, int jobs,
+                         float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int job = blockIdx.x * kBwdWarps + warp;
+  if (job >= jobs) return;  // no block-wide barrier below
+  const int rs = Dh + 2;    // bf16 per tile row: an odd number of 32-bit words
+  const int ns = N + 1;
+  unsigned char* mine = smem + (size_t)warp * bwd_job_smem(N, Dh);
+  __nv_bfloat16* tq = reinterpret_cast<__nv_bfloat16*>(mine);
+  __nv_bfloat16* tk = tq + N * rs;
+  __nv_bfloat16* tv = tk + N * rs;
+  __nv_bfloat16* tdo = tv + N * rs;
+  float* sp = reinterpret_cast<float*>(tdo + N * rs);  // S, then P
+  float* sd = sp + N * ns;                              // dP, then dS
+  const size_t base = (size_t)(job / heads) * N * C + (size_t)(job % heads) * Dh;
+
+  // 16-byte loads from device memory, 4-byte stores into the padded rows
+  const int dc = Dh / 8;
+  for (int e = lane; e < N * dc; e += 32) {
+    const int r = e / dc, c = (e % dc) * 8;
+    const size_t g = base + (size_t)r * C + c;
+    const __nv_bfloat16* src[4] = {q + g, k + g, v + g, dout + g};
+    __nv_bfloat16* dst[4] = {tq, tk, tv, tdo};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const uint4 u = *reinterpret_cast<const uint4*>(src[t]);
+      uint32_t* w = reinterpret_cast<uint32_t*>(dst[t] + r * rs + c);
+      w[0] = u.x;
+      w[1] = u.y;
+      w[2] = u.z;
+      w[3] = u.w;
+    }
+  }
+  __syncwarp();
+
+  // S = q k^T s and dP = dO v^T: entry e = (i, j) per lane, dot over Dh
+  for (int e = lane; e < N * N; e += 32) {
+    const int i = e / N, j = e % N;
+    const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(tq + i * rs);
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(tk + j * rs);
+    const __nv_bfloat162* c = reinterpret_cast<const __nv_bfloat162*>(tdo + i * rs);
+    const __nv_bfloat162* d = reinterpret_cast<const __nv_bfloat162*>(tv + j * rs);
+    float s = 0.f, p = 0.f;
+    for (int t = 0; t < Dh / 2; ++t) {
+      const float2 fa = __bfloat1622float2(a[t]), fb = __bfloat1622float2(b[t]);
+      const float2 fc = __bfloat1622float2(c[t]), fd = __bfloat1622float2(d[t]);
+      s = fmaf(fa.x, fb.x, s);
+      s = fmaf(fa.y, fb.y, s);
+      p = fmaf(fc.x, fd.x, p);
+      p = fmaf(fc.y, fd.y, p);
+    }
+    sp[i * ns + j] = s * scale;
+    sd[i * ns + j] = p;
+  }
+  __syncwarp();
+
+  // softmax of row i in f32, then dS = P (dP - rowsum(dP P)); lane i, i < N
+  if (lane < N) {
+    float* srow = sp + lane * ns;
+    float* drow = sd + lane * ns;
+    float mx = -INFINITY;
+    for (int j = 0; j < N; ++j) mx = fmaxf(mx, srow[j]);
+    float sum = 0.f;
+    for (int j = 0; j < N; ++j) {
+      const float ex = __expf(srow[j] - mx);
+      srow[j] = ex;
+      sum += ex;
+    }
+    const float inv = 1.f / sum;
+    float r = 0.f;
+    for (int j = 0; j < N; ++j) {
+      srow[j] *= inv;
+      r = fmaf(drow[j], srow[j], r);
+    }
+    for (int j = 0; j < N; ++j) drow[j] = srow[j] * (drow[j] - r);
+  }
+  __syncwarp();
+
+  // dV[j] = sum_i bf16(P[i][j]) dO[i]; dQ[i] = s sum_j dS[i][j] k[j];
+  // dK[j] = s sum_i dS[i][j] q[i]: lane over the head's columns
+  for (int col = lane; col < Dh; col += 32) {
+    for (int j = 0; j < N; ++j) {
+      float accv = 0.f, acck = 0.f, accq = 0.f;
+      for (int i = 0; i < N; ++i) {
+        const float pij = __bfloat162float(__float2bfloat16(sp[i * ns + j]));
+        accv = fmaf(pij, __bfloat162float(tdo[i * rs + col]), accv);
+        acck = fmaf(sd[i * ns + j], __bfloat162float(tq[i * rs + col]), acck);
+        accq = fmaf(sd[j * ns + i], __bfloat162float(tk[i * rs + col]), accq);
+      }
+      const size_t g = base + (size_t)j * C + col;
+      dv[g] = __float2bfloat16(accv);
+      dk[g] = __float2bfloat16(acck * scale);
+      dq[g] = __float2bfloat16(accq * scale);
+    }
+  }
+}
+
+}  // namespace
+
+// K3b: one warp per (pixel, head) job, kBwdWarps warps per block.
+extern "C" int temporal_attention_bwd(const void* q, const void* k, const void* v,
+                                      const void* dout, void* dq, void* dk, void* dv, int P,
+                                      int N, int C, int Dh, float scale, void* stream) {
+  if (P < 1 || N < 1 || N > 32 || Dh < 8 || Dh > 128 || Dh % 8 != 0 || C % Dh != 0 ||
+      (long long)P * (C / Dh) > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const int heads = C / Dh, jobs = P * heads;
+  const size_t smem = kBwdWarps * bwd_job_smem(N, Dh);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      temporal_attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  temporal_attn_bwd_kernel<<<(jobs + kBwdWarps - 1) / kBwdWarps, kBwdWarps * 32, smem,
+                             (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (const __nv_bfloat16*)dout, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, N,
+      C, Dh, heads, jobs, scale);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,7 @@ Submodule names follow the original Geo4D PyTorch autoencoder.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -242,3 +242,15 @@ class AutoencoderKL(nn.Module):
         rgb, pre_head = self.decoder(self.post_quant_conv(z.to(self.dtype)))
         conf = self.decoder_adaptor(pre_head)
         return torch.cat([rgb, conf], dim=-1).float()
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                sample: bool = False):
+        """(recon, mean, logvar) of x: with `sample`, decode a posterior sample
+        mean + exp(logvar / 2) * noise, the noise drawn from `generator`;
+        else decode the mean (JAX's `__call__`)."""
+        mean, logvar = self.encode(x)
+        z = mean
+        if sample:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+            z = mean + torch.exp(0.5 * logvar) * noise
+        return self.decode(z), mean, logvar

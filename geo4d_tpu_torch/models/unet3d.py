@@ -5,7 +5,12 @@ video latents), 16 out, model width 320, mults (1, 2, 4, 4), 2 res blocks per
 level, attention at ds {1, 2, 4} with 64-dim heads, spatial + temporal
 transformers per level, an extra 8-head temporal attention after the stem
 conv (`init_attn`), fps conditioning with a zero-init tail, and per-frame
-context [text 77 | 16 image tokens of that frame].
+context [text 77 | 16 image tokens of that frame]. `task_condition` adds
+the pc_task modality's task embedding (an MLP on a max-period-100 sinusoid
+of the integer task id, zero-init tail). With `remat` set, each block runs
+under `torch.utils.checkpoint` (non-reentrant): its activations are
+recomputed in the backward instead of kept, and its kernels' forward
+launches run twice.
 
 Frames are channels-last (B*T, H, W, C); temporal layers see (B, T, H, W, C).
 Submodule names follow the original Geo4D PyTorch UNet (including its
@@ -18,6 +23,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from geo4d_tpu_torch.nn.attention import TEXT_CONTEXT_LEN, SpatialTransformer, TemporalTransformer
 from geo4d_tpu_torch.nn.basics import (
@@ -116,14 +122,16 @@ class UNet3D(nn.Module):
                  temporal_attention: bool = True, use_relative_position: bool = False,
                  use_causal_attention: bool = False, addition_attention: bool = True,
                  image_cross_attention: bool = True, fs_condition: bool = True,
-                 default_fs: int = 24, dtype=torch.bfloat16):
+                 task_condition: bool = False, default_fs: int = 24, dtype=torch.bfloat16):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.model_channels = mc = model_channels
         self.context_dim = context_dim
         self.temporal_length = temporal_length
         self.fs_condition, self.default_fs = fs_condition, default_fs
+        self.task_condition = task_condition
         self.dtype = dtype
+        self.remat = False
         emb_dim = mc * 4
         t_len = temporal_length
 
@@ -143,6 +151,8 @@ class UNet3D(nn.Module):
         self.time_embed = time_embed_mlp(mc, emb_dim, dtype=dtype)
         if fs_condition:
             self.fps_embedding = time_embed_mlp(mc, emb_dim, zero_out=True, dtype=dtype)
+        if task_condition:
+            self.task_embedding = time_embed_mlp(mc, emb_dim, zero_out=True, dtype=dtype)
 
         self.input_blocks = nn.ModuleList([nn.ModuleDict({"0": Conv2d(in_channels, mc, 3, dtype=dtype)})])
         self.init_attn = nn.ModuleList([temporal(mc, heads=8)]) if addition_attention else None
@@ -202,10 +212,17 @@ class UNet3D(nn.Module):
                 h = layer(h)
         return h
 
+    def _block(self, block: nn.ModuleDict, h, emb, ctx, b, t):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._run_block, block, h, emb, ctx, b, t, use_reentrant=False)
+        return self._run_block(block, h, emb, ctx, b, t)
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
-                fs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                fs: Optional[torch.Tensor] = None, task: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """x: (B, T, H, W, Cin); timesteps: (B,) or (B, T); context
-        (B, 77 + T*16, ctx) or (B, L, ctx); fs: (B,) ints.
+        (B, 77 + T*16, ctx) or (B, L, ctx); fs: (B,) ints; task: (B,) int
+        task ids (required with `task_condition`).
         Returns (B, T, H, W, Cout) float32."""
         b, t, hgt, wid, _ = x.shape
         mc, dtype = self.model_channels, self.dtype
@@ -219,6 +236,11 @@ class UNet3D(nn.Module):
                 fs = torch.full((b,), self.default_fs, dtype=torch.int32, device=x.device)
             fs_emb = self.fps_embedding(timestep_embedding(fs, mc).to(dtype))
             emb = emb + fs_emb.repeat_interleave(t, dim=0)
+        if self.task_condition:
+            if task is None:
+                raise ValueError("task_condition=True requires task ids")
+            task_emb = self.task_embedding(timestep_embedding(task, mc, max_period=100.0).to(dtype))
+            emb = emb + task_emb.repeat_interleave(t, dim=0)
 
         if context.shape[1] == TEXT_CONTEXT_LEN + t * IMAGE_TOKENS_PER_FRAME:
             ctx_text = context[:, :TEXT_CONTEXT_LEN].repeat_interleave(t, dim=0)
@@ -233,10 +255,10 @@ class UNet3D(nn.Module):
             h = self.init_attn[0](h.reshape(b, t, *h.shape[1:])).reshape(h.shape)
         hs = [h]
         for block in self.input_blocks[1:]:
-            h = self._run_block(block, h, emb, ctx, b, t)
+            h = self._block(block, h, emb, ctx, b, t)
             hs.append(h)
-        h = self._run_block(self.middle_block, h, emb, ctx, b, t)
+        h = self._block(self.middle_block, h, emb, ctx, b, t)
         for block in self.output_blocks:
-            h = self._run_block(block, torch.cat([h, hs.pop()], dim=-1), emb, ctx, b, t)
+            h = self._block(block, torch.cat([h, hs.pop()], dim=-1), emb, ctx, b, t)
         h = self.out["2"](self.out["0"](h))
         return h.reshape(b, t, hgt, wid, self.out_channels).float()

@@ -49,30 +49,44 @@ _SIGNATURES = {
     "gn_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gn_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "gn_resident": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "gn_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                    _P],
+    "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "temporal_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 
 class KernelStats:
-    """Per-kernel counters: `launches` counts kernel launches made by the
-    wrapper and `by_shape` the same launches keyed by the kernel's shape
-    tuple; `plain_on_cuda` counts calls of the plain version with a CUDA
-    tensor (only a comparison against the kernel does that)."""
+    """Per-kernel counters: `launches` counts forward-kernel launches made by
+    the wrapper and `by_shape` the same launches keyed by the kernel's shape
+    tuple; `backward_launches` and `backward_by_shape` count the backward
+    kernel's launches the same way; `plain_on_cuda` counts calls of a plain
+    version (forward or backward) with a CUDA tensor (only a comparison
+    against the kernel does that)."""
 
     def __init__(self):
         self.launches = 0
         self.by_shape: collections.Counter = collections.Counter()
+        self.backward_launches = 0
+        self.backward_by_shape: collections.Counter = collections.Counter()
         self.plain_on_cuda = 0
 
     def reset(self) -> None:
         self.launches = 0
         self.by_shape.clear()
+        self.backward_launches = 0
+        self.backward_by_shape.clear()
         self.plain_on_cuda = 0
 
     def note_launch(self, shape: tuple) -> None:
         self.launches += 1
         self.by_shape[shape] += 1
+
+    def note_backward(self, shape: tuple) -> None:
+        self.backward_launches += 1
+        self.backward_by_shape[shape] += 1
 
     def note_plain(self, x: torch.Tensor) -> None:
         if x.is_cuda:
@@ -87,6 +101,13 @@ def use_kernel(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise RuntimeError(f"no kernel route for device {x.device}")
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd records this call: grad mode is on and an input
+    requires a gradient. Otherwise a wrapper runs its forward alone and
+    saves nothing for a backward."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def require(cond: bool, what: str) -> None:

@@ -1,10 +1,17 @@
-"""Spatial multi-head attention over (B, N, H, D) tensors: kernel K2.
+"""Spatial multi-head attention over (B, N, H, D) tensors: kernels K2 and
+K2b (its backward).
 
 `flash_attention` computes unmasked softmax(q k^T / sqrt(D)) v. On a CUDA
 tensor it launches csrc/flash_attention.cu (128-row q tiles, K/V streamed by
 TMA in tiles of `plan`'s BK keys, wgmma products, online softmax); on a CPU
 tensor it runs `flash_attention_plain`. `fits` is the shape gate the
 attention layer routes by.
+
+When autograd records the call, the forward also writes the softmax's
+log-sum-exp per (b, h, query) and keeps q, k, v, o and it; the backward
+launches K2b (csrc/flash_attention_bwd.cu: delta = rowsum(dO o), dK and dV
+per key tile, dQ per query tile, no atomics) or, on the CPU,
+`flash_attention_backward_plain`, the same algebra in PyTorch ops.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from geo4d_tpu_torch.ops.dispatch import (
     require,
     stream_handle,
     use_kernel,
+    wants_grad,
 )
 
 stats = KernelStats()
@@ -55,10 +63,34 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return out.to(v.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q: (B, Nq, H, D), k/v: (B, Nk, H, D) -> (B, Nq, H, D)."""
-    if not use_kernel(q):
-        return flash_attention_plain(q, k, v)
+def log_sum_exp_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, H, Nq) float32 log-sum-exp of the scaled logits, as K2 writes it."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return torch.logsumexp(logits, dim=-1)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor):
+    """(dq, dk, dv) of `flash_attention` for the cotangent do, with K2b's
+    algebra: P = exp(q k^T s - lse) in f32; dv = bf16(P)^T do (the weights the
+    forward multiplied v by; the gradient passes through the cast unchanged);
+    dP = do v^T; delta = rowsum(do o); dS = P (dP - delta); dq = dS k s,
+    dk = dS^T q s. Results in q's dtype."""
+    stats.note_plain(q)
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)        # (B, H, Nq)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _checked(q, k, v):
     b, nq, h, d = q.shape
     nk = k.shape[1]
     require(k.shape == (b, nk, h, d) and v.shape == k.shape, "k/v must be (B, Nk, H, D)")
@@ -67,10 +99,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     for t in (q, k, v):
         require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 32 == 0
                 and t.device == q.device, "q/k/v must be contiguous, 32-byte aligned bf16 on one device")
+    return b, nq, nk, h, d
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            with_lse: bool):
+    """One K2 launch on CUDA tensors: (o, the (B, H, Nq) f32 log-sum-exp that
+    K2b reads, or None)."""
+    b, nq, nk, h, d = _checked(q, k, v)
     o = torch.empty_like(q)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     bk, _ = plan(nq, nk)
     err = kernels().flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                    lse.data_ptr() if with_lse else None,
                                     b, nq, nk, h, d ** -0.5, bk, stream_handle(q))
     check_launch("flash_attention", err)
     stats.note_launch((b, nq, nk, h))
-    return o
+    return o, lse
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor):
+    """K2b on CUDA tensors: (dq, dk, dv) for the cotangent do, from the
+    forward's output o and log-sum-exp. Three launches: delta = rowsum(do o)
+    per row, then one block per (key tile, h, b) accumulating dK and dV over
+    every query tile, then one per (query tile, h, b) accumulating dQ over
+    every key tile; mma.sync products in bf16 with f32 sums. Repeats bit for
+    bit (no atomics)."""
+    b, nq, nk, h, d = _checked(q, k, v)
+    for t in (o, do):
+        require(t.shape == q.shape and t.dtype == torch.bfloat16 and t.is_contiguous()
+                and t.data_ptr() % 32 == 0 and t.device == q.device,
+                "o/dO must be contiguous, 32-byte aligned bf16 of q's shape")
+    require(lse.shape == (b, h, nq) and lse.dtype == torch.float32 and lse.is_contiguous(),
+            "lse must be the forward's (B, H, Nq) float32 log-sum-exp")
+    delta = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = kernels().flash_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                        b, nq, nk, h, d ** -0.5, stream_handle(q))
+    check_launch("flash_attention_bwd", err)
+    stats.note_backward((b, nq, nk, h))
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if use_kernel(q):
+            o, lse = flash_attention_forward(q, k, v, with_lse=True)
+        else:
+            o, lse = flash_attention_plain(q, k, v), log_sum_exp_plain(q, k)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if use_kernel(q):
+            return flash_attention_backward(q, k, v, o, do, lse)
+        return flash_attention_backward_plain(q, k, v, o, do, lse)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q: (B, Nq, H, D), k/v: (B, Nk, H, D) -> (B, Nq, H, D). When autograd
+    records the call the result carries K2b (CPU: the plain backward) as its
+    gradient; otherwise nothing is saved."""
+    if wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v)
+    if not use_kernel(q):
+        return flash_attention_plain(q, k, v)
+    return flash_attention_forward(q, k, v, with_lse=False)[0]

@@ -1,4 +1,5 @@
-"""GroupNorm (+ optional SiLU) on channels-last activations: kernel K1.
+"""GroupNorm (+ optional SiLU) on channels-last activations: kernels K1 and
+K1b (its backward).
 
 `group_norm` normalises x viewed as (N, S, C), with N = x.shape[0] and S
 the product of the middle axes: statistics per (n, group) over S x C/G in
@@ -8,6 +9,13 @@ it launches csrc/group_norm.cu; on a CPU tensor it runs `group_norm_plain`.
 once into shared memory, a grid-wide barrier, y written from shared memory)
 where every block's slice fits its shared memory, else two passes (partial
 sums per tile, then fold and apply).
+
+When autograd records the call, `group_norm` is a `torch.autograd.Function`:
+the forward keeps x, gamma, beta and the per-(n, tile, group) partial sums
+the forward kernel wrote (on the CPU: the per-(n, group) mean and rstd),
+and the backward launches K1b (`gn_backward` in csrc/group_norm.cu: partial
+sums of dz and dz * xhat per (n, tile, channel), fixed-order folds, then dx)
+or, on the CPU, `group_norm_backward_plain`, the same algebra in PyTorch ops.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from geo4d_tpu_torch.ops.dispatch import (
     sm_count,
     stream_handle,
     use_kernel,
+    wants_grad,
 )
 
 stats = KernelStats()
@@ -35,12 +44,8 @@ _MAX_TILES = 128        # caps the partial-sum fold each apply block reads
 _MAX_CHANNELS = 4096
 
 
-def group_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                     groups: int, eps: float, silu: bool = False) -> torch.Tensor:
-    """The same function in PyTorch ops, with the algebra of the JAX XLA path
-    (geo4d_tpu/nn/basics.py::_FusedGroupNorm): per-channel f32 moments,
-    group combine, one per-channel affine."""
-    stats.note_plain(x)
+def group_norm_plain_with_stats(x, gamma, beta, groups, eps, silu):
+    """`group_norm_plain` and its per-(n, group) mean and rstd, (N, G) f32."""
     n, c = x.shape[0], x.shape[-1]
     cg = c // groups
     x3 = x.reshape(n, -1, c)
@@ -58,7 +63,52 @@ def group_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     y = xf * a[:, None] + b[:, None]
     if silu:
         y = y * torch.sigmoid(y)
-    return y.to(x.dtype).reshape(x.shape)
+    return y.to(x.dtype).reshape(x.shape), mean_g, rstd_g
+
+
+def group_norm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     groups: int, eps: float, silu: bool = False) -> torch.Tensor:
+    """The same function in PyTorch ops, with the algebra of the JAX XLA path
+    (geo4d_tpu/nn/basics.py::_FusedGroupNorm): per-channel f32 moments,
+    group combine, one per-channel affine."""
+    stats.note_plain(x)
+    return group_norm_plain_with_stats(x, gamma, beta, groups, eps, silu)[0]
+
+
+def group_norm_backward_plain(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
+                              beta: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                              groups: int, silu: bool = False):
+    """(dx, dgamma, dbeta) of `group_norm` at x for the cotangent dy, from the
+    per-(n, group) mean and rstd (N, G), with K1b's algebra: xhat = (x - mean)
+    * rstd and z = xhat * gamma + beta recomputed; dz = dy (times the SiLU's
+    derivative sigma(z) (1 + z (1 - sigma(z))) with `silu`); per channel the
+    sums of dz (dbeta) and dz * xhat (dgamma); per group the means c1 of
+    dz * gamma * xhat and c2 of dz * gamma; dx = rstd (dz gamma - c2 - xhat c1).
+    dx in x's dtype, dgamma and dbeta float32."""
+    stats.note_plain(x)
+    n, c = x.shape[0], x.shape[-1]
+    cg = c // groups
+    xf = x.reshape(n, -1, c).float()
+    dyf = dy.reshape(n, -1, c).float()
+    g, b = gamma.float(), beta.float()
+
+    def per_channel(t):                                       # (N, G) -> (N, 1, C)
+        return t.repeat_interleave(cg, dim=-1)[:, None]
+
+    rstd_c = per_channel(rstd)
+    xhat = (xf - per_channel(mean)) * rstd_c
+    dz = dyf
+    if silu:
+        z = xhat * g + b
+        sig = torch.sigmoid(z)
+        dz = dyf * sig * (1.0 + z * (1.0 - sig))
+    sum_dz = dz.sum(dim=1)                                    # (N, C)
+    sum_dzx = (dz * xhat).sum(dim=1)
+    count = xf.shape[1] * cg
+    c1 = (sum_dzx * g).view(n, groups, cg).sum(-1) / count    # (N, G)
+    c2 = (sum_dz * g).view(n, groups, cg).sum(-1) / count
+    dx = rstd_c * (dz * g - per_channel(c2) - xhat * per_channel(c1))
+    return dx.to(x.dtype).reshape(x.shape), sum_dzx.sum(0), sum_dz.sum(0)
 
 
 def tiling(n: int, s: int, c: int) -> tuple[int, int]:
@@ -135,7 +185,7 @@ def _two_pass(x, gamma, beta, groups, eps, silu, n, s, c, t, rows):
             part[1].data_ptr(), y.data_ptr(), n, s, c, groups, t, rows,
             float(eps), int(silu), stream))
 
-    return stats_pass, apply_pass, y
+    return stats_pass, apply_pass, y, part
 
 
 def two_pass_launches(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -150,17 +200,13 @@ def two_pass_launches(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     n, s, c = _checked(x, gamma, beta, groups)
     path, t, rows = plan(n, s, c, groups, sm_count(x.device.index))
     require(path == "two_pass", f"(N, S, C) = {(n, s, c)} takes the resident path")
-    return _two_pass(x, gamma, beta, groups, eps, silu, n, s, c, t, rows)
+    return _two_pass(x, gamma, beta, groups, eps, silu, n, s, c, t, rows)[:3]
 
 
-def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-               groups: int, eps: float, silu: bool = False) -> torch.Tensor:
-    """GroupNorm over the last axis of channels-last `x` (+ optional SiLU).
-
-    gamma/beta: (C,) float32. Returns a tensor of x's shape and dtype.
-    """
-    if not use_kernel(x):
-        return group_norm_plain(x, gamma, beta, groups, eps, silu)
+def group_norm_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                       groups: int, eps: float, silu: bool = False):
+    """One K1 call on a CUDA tensor: (y, the per-(n, tile, group) partial sums
+    (2, N, T, G) that K1b folds)."""
     n, s, c = _checked(x, gamma, beta, groups)
     path, t, rows = plan(n, s, c, groups, sm_count(x.device.index))
     if path == "resident":
@@ -171,9 +217,80 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             part[1].data_ptr(), y.data_ptr(), n, s, c, groups, t, rows,
             float(eps), int(silu), stream_handle(x)))
     else:
-        stats_pass, apply_pass, y = _two_pass(x, gamma, beta, groups, eps, silu,
-                                              n, s, c, t, rows)
+        stats_pass, apply_pass, y, part = _two_pass(x, gamma, beta, groups, eps, silu,
+                                                    n, s, c, t, rows)
         stats_pass()
         apply_pass()
     stats.note_launch((n, s, c, bool(silu)))
-    return y
+    return y, part
+
+
+def group_norm_backward(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
+                        beta: torch.Tensor, part: torch.Tensor, groups: int, eps: float,
+                        silu: bool = False):
+    """K1b on CUDA tensors: (dx, dgamma, dbeta) of `group_norm` at x for the
+    cotangent dy, from the forward's partial sums `part` (2, N, T_fwd, G),
+    which K1b folds in the forward's fixed order. Four launches on `tiling`'s
+    tiles: partial sums of dz and dz * xhat per (n, tile, channel), their
+    fold per (n, channel), dgamma and dbeta, then dx. Repeats bit for bit
+    (no atomics)."""
+    n, s, c = _checked(x, gamma, beta, groups)
+    require(dy.shape == x.shape and dy.dtype == x.dtype and dy.is_contiguous()
+            and dy.data_ptr() % 16 == 0 and dy.device == x.device,
+            "dy must be a contiguous, 16-byte aligned tensor of x's shape and dtype")
+    require(part.dtype == torch.float32 and part.dim() == 4 and part.shape[:2] == (2, n)
+            and part.shape[3] == groups and part.is_contiguous(),
+            "part must be the forward's (2, N, T, G) float32 partial sums")
+    t, rows = tiling(n, s, c)
+    scratch = torch.empty(2 * n * t * c + 2 * n * c, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
+    check_launch("gn_backward", kernels().gn_backward(
+        x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), scratch.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+        dbeta.data_ptr(), n, s, c, groups, part.shape[2], t, rows, float(eps), int(silu),
+        stream_handle(x)))
+    stats.note_backward((n, s, c, bool(silu)))
+    return dx, dgamma, dbeta
+
+
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups, eps, silu):
+        if use_kernel(x):
+            y, saved = group_norm_forward(x, gamma, beta, groups, eps, silu)
+        else:
+            stats.note_plain(x)
+            y, mean, rstd = group_norm_plain_with_stats(x, gamma, beta, groups, eps, silu)
+            saved = torch.stack([mean, rstd])
+        ctx.save_for_backward(x, gamma, beta, saved)
+        ctx.options = (groups, eps, silu)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, saved = ctx.saved_tensors
+        groups, eps, silu = ctx.options
+        dy = dy.contiguous()
+        if use_kernel(x):
+            dx, dgamma, dbeta = group_norm_backward(x, dy, gamma, beta, saved, groups, eps, silu)
+        else:
+            dx, dgamma, dbeta = group_norm_backward_plain(x, dy, gamma, beta, saved[0],
+                                                          saved[1], groups, silu)
+        return dx, dgamma, dbeta, None, None, None
+
+
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               groups: int, eps: float, silu: bool = False) -> torch.Tensor:
+    """GroupNorm over the last axis of channels-last `x` (+ optional SiLU).
+
+    gamma/beta: (C,) float32. Returns a tensor of x's shape and dtype. When
+    autograd records the call the result carries K1b (CPU: the plain
+    backward) as its gradient; otherwise nothing is saved.
+    """
+    if wants_grad(x, gamma, beta):
+        return _GroupNorm.apply(x, gamma, beta, groups, eps, silu)
+    if not use_kernel(x):
+        return group_norm_plain(x, gamma, beta, groups, eps, silu)
+    return group_norm_forward(x, gamma, beta, groups, eps, silu)[0]

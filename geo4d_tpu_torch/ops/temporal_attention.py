@@ -1,4 +1,5 @@
-"""Per-pixel tiny-sequence self-attention, heads-packed layout: kernel K3.
+"""Per-pixel tiny-sequence self-attention, heads-packed layout: kernels K3
+and K3b (its backward).
 
 `temporal_attention(q, k, v, n_heads)` takes q/k/v of shape (P, N, C) with
 C = n_heads * d, straight off the QKV projections (no head split), and runs
@@ -7,6 +8,11 @@ launches csrc/temporal_attention.cu (one warp per job, mma.sync products,
 each warp's next jobs copied ahead by cp.async into a ring of `stages`
 slots) on the launch `plan`; on a CPU tensor it runs
 `temporal_attention_plain`.
+
+When autograd records the call, the forward keeps q, k and v (N <= 32, so
+the backward recomputes the softmax); the backward launches K3b
+(`temporal_attention_bwd` in the same source: one warp per job, no job
+reduces across another) or, on the CPU, `temporal_attention_backward_plain`.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from geo4d_tpu_torch.ops.dispatch import (
     sm_count,
     stream_handle,
     use_kernel,
+    wants_grad,
 )
 
 stats = KernelStats()
@@ -94,11 +101,31 @@ def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(p, n, c).to(v.dtype)
 
 
-def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       n_heads: int) -> torch.Tensor:
-    """q/k/v: (P, N, C), C = n_heads * d -> (P, N, C)."""
-    if not use_kernel(q):
-        return temporal_attention_plain(q, k, v, n_heads)
+def temporal_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                      do: torch.Tensor, n_heads: int):
+    """(dq, dk, dv) of `temporal_attention` for the cotangent do, with K3b's
+    algebra: the logits and the f32 softmax P recomputed; dv = bf16(P)^T do
+    (the weights the forward multiplied v by); dP = do v^T; dS = P (dP -
+    rowsum(dP P)); dq = dS k s, dk = dS^T q s. Results in q's dtype."""
+    stats.note_plain(q)
+    p, n, c = q.shape
+    d = c // n_heads
+    scale = d ** -0.5
+
+    def split(t):
+        return t.reshape(p, n, n_heads, d).float()
+
+    qf, kf, vf, dof = split(q), split(k), split(v), split(do)
+    probs = torch.softmax(torch.einsum("pqhd,pkhd->phqk", qf, kf) * scale, dim=-1)
+    dv = torch.einsum("phqk,pqhd->pkhd", probs.to(v.dtype).float(), dof)
+    dp = torch.einsum("pqhd,pkhd->phqk", dof, vf)
+    ds = probs * (dp - (dp * probs).sum(-1, keepdim=True))
+    dq = torch.einsum("phqk,pkhd->pqhd", ds, kf) * scale
+    dk = torch.einsum("phqk,pqhd->pkhd", ds, qf) * scale
+    return tuple(t.reshape(p, n, c).to(q.dtype) for t in (dq, dk, dv))
+
+
+def _checked(q, k, v, n_heads):
     p, n, c = q.shape
     require(c % n_heads == 0, f"C={c} not divisible by {n_heads} heads")
     d = c // n_heads
@@ -109,6 +136,11 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         require(t.shape == (p, n, c) and t.dtype == torch.bfloat16 and t.is_contiguous()
                 and t.data_ptr() % 16 == 0 and t.device == q.device,
                 "q/k/v must be contiguous, 16-byte aligned bf16 (P, N, C) on one device")
+    return p, n, c, d
+
+
+def _forward_kernel(q, k, v, n_heads):
+    p, n, c, d = _checked(q, k, v, n_heads)
     o = torch.empty_like(q)
     pl = plan(p, n, c, n_heads, sm_count(q.device.index))
     err = kernels().temporal_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -117,3 +149,54 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_launch("temporal_attention", err)
     stats.note_launch((p, n, c, n_heads))
     return o
+
+
+def temporal_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                do: torch.Tensor, n_heads: int):
+    """K3b on CUDA tensors: (dq, dk, dv) for the cotangent do, one warp per
+    (pixel, head) job recomputing its softmax. Repeats bit for bit."""
+    p, n, c, d = _checked(q, k, v, n_heads)
+    _checked(do, do, do, n_heads)
+    require(do.shape == q.shape and do.device == q.device, "dO must have q's shape and device")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = kernels().temporal_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                           dv.data_ptr(), p, n, c, d, d ** -0.5,
+                                           stream_handle(q))
+    check_launch("temporal_attention_bwd", err)
+    stats.note_backward((p, n, c, n_heads))
+    return dq, dk, dv
+
+
+class _TemporalAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads):
+        if use_kernel(q):
+            o = _forward_kernel(q, k, v, n_heads)
+        else:
+            o = temporal_attention_plain(q, k, v, n_heads)
+        ctx.save_for_backward(q, k, v)
+        ctx.n_heads = n_heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        do = do.contiguous()
+        if use_kernel(q):
+            grads = temporal_attention_backward(q, k, v, do, ctx.n_heads)
+        else:
+            grads = temporal_attention_backward_plain(q, k, v, do, ctx.n_heads)
+        return (*grads, None)
+
+
+def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       n_heads: int) -> torch.Tensor:
+    """q/k/v: (P, N, C), C = n_heads * d -> (P, N, C). When autograd records
+    the call the result carries K3b (CPU: the plain backward) as its
+    gradient; otherwise nothing is saved."""
+    if wants_grad(q, k, v):
+        return _TemporalAttention.apply(q, k, v, n_heads)
+    if not use_kernel(q):
+        return temporal_attention_plain(q, k, v, n_heads)
+    return _forward_kernel(q, k, v, n_heads)

@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's numpy-only modules against the
 originals, on the same inputs: trajectory metrics (exact), the YAML config
 (the same trees and the same errors), the CLIP tokenizer (the same ids
-with a merge table; a fallback that repeats across processes) and frame
-loading (the same uint8 frames). The results exporter is held to the
+with a merge table; a fallback that repeats across processes), frame
+loading (the same uint8 frames) and the epoch-seeded batch sampler (the
+same plans). The results exporter is held to the
 original in tests/test_torch_reconstruct.py."""
 
 import os
@@ -14,10 +15,12 @@ import numpy as np
 import pytest
 
 from geo4d_tpu.core import config as jax_config
+from geo4d_tpu.data import sampler as jax_sampler
 from geo4d_tpu.data import tokenizer as jax_tokenizer
 from geo4d_tpu.data import video as jax_video
 from geo4d_tpu.evals import trajectory as jax_traj
 from geo4d_tpu_torch.core import config as port_config
+from geo4d_tpu_torch.data import sampler as port_sampler
 from geo4d_tpu_torch.data import tokenizer as port_tokenizer
 from geo4d_tpu_torch.data import video as port_video
 from geo4d_tpu_torch.evals import trajectory as port_traj
@@ -144,3 +147,23 @@ def test_load_video_matches_jax(tmp_path, stride, max_frames):
     assert got.dtype == np.uint8 and fps == want_fps == 24 // stride
     assert got.shape == (20 // stride if max_frames < 0 else max_frames, 24, 32, 3)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,batch,pool,world", [(7, 2, 1, 1), (23, 3, 4, 2), (10, 4, 2, 1)])
+def test_sampler_matches_jax(n, batch, pool, world):
+    for up in (False, True):
+        assert port_sampler.round_by(n, batch * world, up) == jax_sampler.round_by(
+            n, batch * world, up)
+    for epoch in range(3):
+        got = port_sampler.epoch_plan(n, batch, pool, epoch, world)
+        want = jax_sampler.epoch_plan(n, batch, pool, epoch, world)
+        np.testing.assert_array_equal(got, want)
+        for rank in range(world):
+            np.testing.assert_array_equal(port_sampler.shard_plan(got, rank, world, batch),
+                                          jax_sampler.shard_plan(want, rank, world, batch))
+    for rank in range(world):
+        ours = port_sampler.BatchedRandomSampler(n, batch, pool, world, rank)
+        theirs = jax_sampler.BatchedRandomSampler(n, batch, pool, world, rank)
+        ours.set_epoch(5)
+        theirs.set_epoch(5)
+        assert len(ours) == len(theirs) and list(ours) == list(theirs)

@@ -1,11 +1,12 @@
-"""The PyTorch port imports nothing of JAX, Flax, Optax, OpenCV, Pillow or
-the JAX package `geo4d_tpu`: a fresh interpreter in which Pillow cannot be
-imported runs the runtime path, `reconstruct` on the tiny preset from frames
-to an aligned scene, then the inference CLI from a directory of PNG frames
-to a results directory, loads a directory of JPEG frames (the decoder of
-data/jpeg.py) and runs the evaluation CLI on a synthetic Sintel sequence,
-and checks what is loaded; it then imports every module of the port (among
-them data/jpeg.py, data/preprocess.py and geometry/warp.py) and checks
+"""The PyTorch port imports nothing of JAX, Flax, Optax, Orbax, OpenCV,
+Pillow or the JAX package `geo4d_tpu`: a fresh interpreter in which Pillow
+cannot be imported runs the runtime path, `reconstruct` on the tiny preset
+from frames to an aligned scene, then the inference CLI from a directory of
+PNG frames to a results directory, loads a directory of JPEG frames (the
+decoder of data/jpeg.py), runs the evaluation CLI on a synthetic Sintel
+sequence and two steps of the training CLI, and checks what is loaded; it
+then imports every module of the port (among them data/jpeg.py,
+data/preprocess.py, geometry/warp.py and the training modules) and checks
 again."""
 
 import os
@@ -20,7 +21,7 @@ sys.modules["PIL"] = None      # import PIL raises: the port must not need it
 import numpy as np
 import torch
 
-FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "cv2", "geo4d_tpu", "PIL")
+FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "geo4d_tpu", "PIL")
 
 def foreign():
     return sorted(m for m, mod in sys.modules.items()
@@ -77,6 +78,18 @@ with tempfile.TemporaryDirectory() as tmp:
                          "--ddim_steps", "1", "--n_iter", "4"])
     assert out["pose_failed"] == [] and len(out["depth"]) == 1
     assert os.path.exists(os.path.join(tmp, "eval", "_error_log_all.txt"))
+    # two training steps of the tiny preset from .npz shards, with checkpoints
+    from geo4d_tpu_torch.cli import train
+    os.makedirs(os.path.join(tmp, "shards"))
+    rng = np.random.default_rng(1)
+    np.savez(os.path.join(tmp, "shards", "clip.npz"),
+             **{k: rng.uniform(-1, 1, (4, 32, 32, c)).astype(np.float32) for k, c in
+                (("video", 3), ("normed_allpts", 3), ("plucker_raymap", 3),
+                 ("plucker_cross", 3), ("inverse_depth", 1))}, fps=24)
+    run = train.main(["--data_dir", os.path.join(tmp, "shards"), "--out_dir",
+                      os.path.join(tmp, "run"), "--tiny", "--device", "cpu", "--height", "32",
+                      "--width", "32", "--video_length", "4", "--steps", "2"])
+    assert len(run["losses"]) == 2 and os.path.exists(os.path.join(tmp, "run", "ckpt_final"))
 assert not foreign(), foreign()
 for mod in pkgutil.walk_packages(geo4d_tpu_torch.__path__, "geo4d_tpu_torch."):
     importlib.import_module(mod.name)

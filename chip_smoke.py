@@ -89,9 +89,11 @@ the final `ok` line):
    two-pass shapes of K1.
 14. backward: every (backward kernel, shape) of phases 12-13 against its
    plain backward on a seeded cotangent (relative L2 of each gradient at
-   most BWD_REL_L2) and a second launch (bit for bit), timed warm and cold
+   most BWD_REL_L2: 1e-4 for K1b, whose cotangent follows y, 1e-2 for K2b
+   and K3b) and a second launch (bit for bit), timed warm and cold
    beside its bound and the library call's backward (F.group_norm, SDPA
-   through torch.autograd), with its launches per training step.
+   through torch.autograd), with its launches per training step and the
+   path its plan takes (K1b coop / two_pass, K2b wgmma / image).
 15. train_repeat: one full-width training step run twice from the same
    state and batch: loss and state repeat bit for bit.
 16. train_reference: one tiny-preset step, bf16 on the card against float32
@@ -1243,9 +1245,11 @@ BWD_KERNELS = {
                            "geo4d_tpu/ops/temporal_attention.py:85 (backward; the JAX package "
                            "differentiates its XLA path, no TPU backward kernel)"),
 }
-# a backward kernel (bf16 operands, f32 sums) against its plain backward in
-# float32 on the same inputs: relative L2 of each gradient
-BWD_REL_L2 = 1e-2
+# a backward kernel against its plain backward in float32 on the same inputs:
+# relative L2 of each gradient. K1b sums in f32 throughout (its dx differs
+# from the plain one by rounding to bf16); K2b and K3b multiply in bf16
+# (P and dS), which sets their floor.
+BWD_REL_L2 = {"group_norm": 1e-4, "flash_attention": 1e-2, "temporal_attention": 1e-2}
 # one training step of the tiny preset, bf16 on the card against float32 on
 # the CPU with the same weights, batch and draws: the loss (relative) and the
 # whole gradient (relative L2)
@@ -1426,9 +1430,12 @@ def bwd_calls(name, key, g, dev):
     args = make_args(name, key, g, dev)
     if name == "group_norm":
         x, gamma, beta, groups, eps, silu = args
-        dy = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
         _, part = gn.group_norm_forward(x, gamma, beta, groups, eps, silu)
-        _, mean, rstd = gn.group_norm_plain_with_stats(x, gamma, beta, groups, eps, silu)
+        y, mean, rstd = gn.group_norm_plain_with_stats(x, gamma, beta, groups, eps, silu)
+        # a cotangent that follows y, so that the group means c1 and c2 (K1b's
+        # cross-tile folds) carry much of dx: a fold that drops, doubles or
+        # misreads a tile moves dx by far more than BWD_REL_L2
+        dy = (y.float() + torch.randn(x.shape, generator=g, device=dev)).to(torch.bfloat16)
         lib = None
         if not silu:
             xl = x.permute(0, 2, 1).detach().requires_grad_()
@@ -1464,11 +1471,27 @@ def bwd_calls(name, key, g, dev):
             lambda: torch.autograd.grad(ol, (hq, hk, hv), dol, retain_graph=True))
 
 
+def bwd_path(name, key, dev):
+    """The path of a backward kernel's plan at shape `key` ("-" for K3b,
+    which has one path)."""
+    from geo4d_tpu_torch.nn.basics import num_groups_for
+    from geo4d_tpu_torch.ops import flash_attention as fa
+    from geo4d_tpu_torch.ops import group_norm as gn
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if name == "group_norm":
+        n, s, c, _ = key
+        return gn.backward_plan(n, s, c, num_groups_for(c), sms)[0]
+    if name == "flash_attention":
+        return fa.backward_plan(*key, sms).path
+    return "-"
+
+
 def backward_phase(dev, train_shapes, steps, vae_shapes):
     """Every (backward kernel, shape) that the training steps of `train`
     (launches per step: the run's count / steps) and the VAE GAN step of
     `vae_train` launched: checked against its plain backward on a seeded
-    cotangent (relative L2 of each gradient <= BWD_REL_L2) and a second launch
+    cotangent (relative L2 of each gradient <= BWD_REL_L2[name]) and a second launch
     (bit for bit), timed warm and cold beside its bound and the library
     call's backward. Returns each kernel's summary row and per-step totals."""
     g = torch.Generator(device=dev).manual_seed(11)
@@ -1493,9 +1516,9 @@ def backward_phase(dev, train_shapes, steps, vae_shapes):
             del got, want
             if not repeat:
                 raise AssertionError(f"backward {name} {label(name, key)}: two launches differ")
-            if not max(errs) <= BWD_REL_L2:
+            if not max(errs) <= BWD_REL_L2[name]:
                 raise AssertionError(f"backward {name} {label(name, key)}: relative L2 "
-                                     f"{errs} > {BWD_REL_L2}")
+                                     f"{errs} > {BWD_REL_L2[name]}")
             row = {"max_abs_err": max_abs, "rel_l2": max(errs), "bound": bwd_bound_ms(name, key),
                    "ms": median_ms(kernel), "cold_ms": median_ms(kernel, cold=True),
                    "library_ms": median_ms(lib) if lib is not None else None,
@@ -1509,7 +1532,8 @@ def backward_phase(dev, train_shapes, steps, vae_shapes):
                 if row["library_ms"] is not None:
                     t["total_library_ms"] += per_step * row["library_ms"]
                     t["total_ms_with_library"] += per_step * row["ms"]
-            print(f"backward {name:18s} {label(name, key):40s} {source} launches_per_step="
+            print(f"backward {name:18s} {label(name, key):40s} {source} "
+                  f"path={bwd_path(name, key, dev)} launches_per_step="
                   f"{per_step:g} ms={row['ms']:.4f} cold_ms={row['cold_ms']:.4f} "
                   f"bound_ms={b:.4f} ({kind}) share_cold={b / row['cold_ms']:.3f} "
                   f"library_ms={fmt(row['library_ms'])} plain_ms={fmt(row['plain_ms'])} "

@@ -50,9 +50,10 @@ _SIGNATURES = {
     "gn_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "gn_resident": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "gn_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                    _P],
+                    _I, _P],
     "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                            _P],
     "temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "temporal_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }

@@ -9,20 +9,26 @@ attention layer routes by.
 
 When autograd records the call, the forward also writes the softmax's
 log-sum-exp per (b, h, query) and keeps q, k, v, o and it; the backward
-launches K2b (csrc/flash_attention_bwd.cu: delta = rowsum(dO o), dK and dV
-per key tile, dQ per query tile, no atomics) or, on the CPU,
-`flash_attention_backward_plain`, the same algebra in PyTorch ops.
+launches K2b (csrc/flash_attention_bwd.cu: dQ per query tile, which also
+writes delta = rowsum(dO o), then dK and dV per key tile, or, for the
+16-key image stream, per query chunk with a fixed-order fold; no atomics)
+or, on the CPU, `flash_attention_backward_plain`, the same algebra in
+PyTorch ops. `backward_plan` gives K2b's launch shapes.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from geo4d_tpu_torch.ops.dispatch import (
+    SM_COUNT,
     KernelStats,
     check_launch,
     kernels,
     require,
+    sm_count,
     stream_handle,
     use_kernel,
     wants_grad,
@@ -49,6 +55,39 @@ def plan(nq: int, nk: int) -> tuple[int, int]:
     its rows past Nq are read as zeros and not stored."""
     bk = 16 if nk <= 16 else (128 if nk % 128 == 0 else 64)
     return bk, -(-nq // BLOCK_Q)
+
+
+IMAGE_KEYS = 16          # the image stream's keys: K2b's chunked dK/dV path
+IMAGE_BLOCKS_PER_SM = 4  # query chunks of that path: about this many 4-warp blocks per SM
+
+
+class BackwardPlan(NamedTuple):
+    """What K2b's C entry point takes beyond the shape. On the "image" path
+    (Nk == 16) the dK/dV kernel runs `chunks` blocks per (b, h), each over
+    `tiles_per_chunk` 64-query tiles, writing `partial_floats` f32 partials
+    that a last launch folds in chunk order. On the "wgmma" path all three
+    are 0, and the entry point launches one dQ block per 128 queries and one
+    dK/dV block per 128 keys."""
+    chunks: int
+    tiles_per_chunk: int
+    partial_floats: int
+
+    @property
+    def path(self) -> str:
+        return "image" if self.chunks else "wgmma"
+
+
+def backward_plan(b: int, nq: int, nk: int, h: int, sms: int = SM_COUNT) -> BackwardPlan:
+    """K2b's plan at (B, Nq, Nk, H) on a card of `sms` SMs: the 16-key image
+    stream cuts each (b, h)'s Nq / 64 query tiles into chunks so that about
+    IMAGE_BLOCKS_PER_SM blocks per SM fill the card."""
+    if nk != IMAGE_KEYS:
+        return BackwardPlan(0, 0, 0)
+    q_tiles = nq // Q_TILE
+    want = min(q_tiles, -(-IMAGE_BLOCKS_PER_SM * sms // (b * h)))
+    per = -(-q_tiles // want)
+    chunks = -(-q_tiles // per)
+    return BackwardPlan(chunks, per, chunks * b * h * 2 * IMAGE_KEYS * HEAD_DIM)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -121,11 +160,11 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor):
     """K2b on CUDA tensors: (dq, dk, dv) for the cotangent do, from the
-    forward's output o and log-sum-exp. Three launches: delta = rowsum(do o)
-    per row, then one block per (key tile, h, b) accumulating dK and dV over
-    every query tile, then one per (query tile, h, b) accumulating dQ over
-    every key tile; mma.sync products in bf16 with f32 sums. Repeats bit for
-    bit (no atomics)."""
+    forward's output o and log-sum-exp, launched as `backward_plan` says:
+    one block per (query tile, h, b) accumulating dQ over every key tile
+    (and writing delta = rowsum(do o)), then dK and dV per key tile (wgmma)
+    or, for the image stream, per query chunk and a fold of the chunks;
+    bf16 products with f32 sums. Repeats bit for bit (no atomics)."""
     b, nq, nk, h, d = _checked(q, k, v)
     for t in (o, do):
         require(t.shape == q.shape and t.dtype == torch.bfloat16 and t.is_contiguous()
@@ -133,12 +172,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "o/dO must be contiguous, 32-byte aligned bf16 of q's shape")
     require(lse.shape == (b, h, nq) and lse.dtype == torch.float32 and lse.is_contiguous(),
             "lse must be the forward's (B, H, Nq) float32 log-sum-exp")
+    pl = backward_plan(b, nq, nk, h, sm_count(q.device.index))
     delta = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    part = torch.empty(pl.partial_floats, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = kernels().flash_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                         do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                        b, nq, nk, h, d ** -0.5, stream_handle(q))
+                                        part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                        dv.data_ptr(), b, nq, nk, h, d ** -0.5, pl.chunks,
+                                        pl.tiles_per_chunk, stream_handle(q))
     check_launch("flash_attention_bwd", err)
     stats.note_backward((b, nq, nk, h))
     return dq, dk, dv

@@ -13,9 +13,11 @@ sums per tile, then fold and apply).
 When autograd records the call, `group_norm` is a `torch.autograd.Function`:
 the forward keeps x, gamma, beta and the per-(n, tile, group) partial sums
 the forward kernel wrote (on the CPU: the per-(n, group) mean and rstd),
-and the backward launches K1b (`gn_backward` in csrc/group_norm.cu: partial
-sums of dz and dz * xhat per (n, tile, channel), fixed-order folds, then dx)
-or, on the CPU, `group_norm_backward_plain`, the same algebra in PyTorch ops.
+and the backward launches K1b (`gn_backward` in csrc/group_norm.cu, on the
+path `backward_plan` picks: one cooperative launch where the forward is
+resident, else two passes; per-(n, tile) partial sums per channel and per
+group, fixed-order folds, then dx) or, on the CPU,
+`group_norm_backward_plain`, the same algebra in PyTorch ops.
 """
 
 from __future__ import annotations
@@ -149,6 +151,28 @@ def plan(n: int, s: int, c: int, groups: int, sms: int = SM_COUNT) -> tuple[str,
     return ("two_pass", *tiling(n, s, c))
 
 
+def backward_plan(n: int, s: int, c: int, groups: int,
+                  sms: int = SM_COUNT) -> tuple[str, int, int]:
+    """(path, tiles per n, rows per tile) of K1b. "coop" (one cooperative
+    launch, x held in shared memory across a grid-wide barrier) on the
+    tiling of `plan`'s "resident" path, with the same shared memory per
+    block; else "two_pass" (two launches) on one wave of blocks: about one
+    per SM (a backward block holds ~128 registers a thread, so an SM runs
+    one), each streaming its rows, so that no wave waits on another's
+    latency."""
+    path, t, rows = plan(n, s, c, groups, sms)
+    if path == "resident":
+        return "coop", t, rows
+    rows = math.ceil(s / max(1, sms // n))
+    return "two_pass", math.ceil(s / rows), rows
+
+
+def backward_scratch_floats(n: int, c: int, groups: int, tiles: int) -> int:
+    """f32 scratch of one K1b call: per block (n, tile) its sums of dz and dz
+    * xhat per channel, and of dz gamma xhat and dz gamma per group."""
+    return 2 * n * tiles * (c + groups)
+
+
 def _checked(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              groups: int) -> tuple[int, int, int]:
     """(N, S, C) of a tensor the kernels take; raises on anything else."""
@@ -230,10 +254,11 @@ def group_norm_backward(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
                         silu: bool = False):
     """K1b on CUDA tensors: (dx, dgamma, dbeta) of `group_norm` at x for the
     cotangent dy, from the forward's partial sums `part` (2, N, T_fwd, G),
-    which K1b folds in the forward's fixed order. Four launches on `tiling`'s
-    tiles: partial sums of dz and dz * xhat per (n, tile, channel), their
-    fold per (n, channel), dgamma and dbeta, then dx. Repeats bit for bit
-    (no atomics)."""
+    which K1b folds in the forward's fixed order. On `backward_plan`'s path:
+    "coop" is one cooperative launch (partial sums per (n, tile), a
+    grid-wide barrier, then dx and the dgamma / dbeta folds), "two_pass" two
+    launches (partial sums, then folds and dx). Repeats bit for bit (no
+    atomics)."""
     n, s, c = _checked(x, gamma, beta, groups)
     require(dy.shape == x.shape and dy.dtype == x.dtype and dy.is_contiguous()
             and dy.data_ptr() % 16 == 0 and dy.device == x.device,
@@ -241,8 +266,9 @@ def group_norm_backward(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
     require(part.dtype == torch.float32 and part.dim() == 4 and part.shape[:2] == (2, n)
             and part.shape[3] == groups and part.is_contiguous(),
             "part must be the forward's (2, N, T, G) float32 partial sums")
-    t, rows = tiling(n, s, c)
-    scratch = torch.empty(2 * n * t * c + 2 * n * c, dtype=torch.float32, device=x.device)
+    path, t, rows = backward_plan(n, s, c, groups, sm_count(x.device.index))
+    scratch = torch.empty(backward_scratch_floats(n, c, groups, t), dtype=torch.float32,
+                          device=x.device)
     dx = torch.empty_like(x)
     dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
     dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
@@ -250,7 +276,7 @@ def group_norm_backward(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
         x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part[0].data_ptr(),
         part[1].data_ptr(), scratch.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
         dbeta.data_ptr(), n, s, c, groups, part.shape[2], t, rows, float(eps), int(silu),
-        stream_handle(x)))
+        int(path == "coop"), stream_handle(x)))
     stats.note_backward((n, s, c, bool(silu)))
     return dx, dgamma, dbeta
 

@@ -32,7 +32,8 @@ torch.set_num_threads(1)
 
 AUTOGRAD_REL = 2e-6
 JAX_REL = 2e-5
-KERNEL_REL = 1e-2
+KERNEL_REL = 1e-2      # K2b, K3b: bf16 P and dS
+GN_KERNEL_REL = 1e-4   # K1b: f32 sums; dx differs from the plain one by its bf16 rounding
 
 GN_CASES = [((2, 6, 8, 320), False), ((2, 6, 8, 320), True), ((1, 4, 24, 32, 64), True),
             ((3, 5, 7, 32), False)]
@@ -166,18 +167,20 @@ def _bf16(g, dev, *shape, scale=1.0):
     return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
 
 
-def _kernel_vs_plain(kernel_grads, plain_grads):
+def _kernel_vs_plain(kernel_grads, plain_grads, tol=KERNEL_REL):
     again = kernel_grads()
     first = kernel_grads()
     for i, (a, b, w) in enumerate(zip(first, again, plain_grads())):
         assert torch.equal(a, b), f"gradient {i}: two launches differ"
         err = rel_err(a.float().cpu().numpy(), w.float().cpu().numpy())
-        assert err <= KERNEL_REL, f"gradient {i}: relative L2 {err:.3e} > {KERNEL_REL}"
+        assert err <= tol, f"gradient {i}: relative L2 {err:.3e} > {tol}"
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,silu", [((16, 2304, 320), True), ((2, 147456, 128), True),
-                                        ((1, 36864, 960), False)])
+@pytest.mark.parametrize("shape,silu", [
+    ((16, 2304, 320), True), ((16, 36, 2560), True), ((1, 36864, 320), True),   # K1b coop
+    ((2, 147456, 128), True), ((1, 36864, 960), False), ((1, 36864, 640), True),  # two-pass
+])
 def test_group_norm_backward_kernel_matches_plain(shape, silu):
     dev = cuda_or_skip()
     g = torch.Generator(device=dev).manual_seed(0)
@@ -186,7 +189,10 @@ def test_group_norm_backward_kernel_matches_plain(shape, silu):
     x = _bf16(g, dev, *shape, scale=2.0).requires_grad_()
     gamma = torch.randn(c, generator=g, device=dev).requires_grad_()
     beta = torch.randn(c, generator=g, device=dev).requires_grad_()
-    dy = _bf16(g, dev, *shape)
+    y = gn.group_norm_plain(x.detach(), gamma.detach(), beta.detach(), groups, 1e-5, silu)
+    # a cotangent that follows y: the group means c1, c2 (K1b's cross-tile
+    # folds) then carry much of dx, so a wrong fold cannot hide under the limit
+    dy = (y.float() + torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
 
     def kernel():
         y = gn.group_norm(x, gamma, beta, groups, 1e-5, silu)
@@ -198,11 +204,14 @@ def test_group_norm_backward_kernel_matches_plain(shape, silu):
         return gn.group_norm_backward_plain(x.detach(), dy, gamma.detach(), beta.detach(),
                                             mean, rstd, groups, silu)
 
-    _kernel_vs_plain(kernel, plain)
+    _kernel_vs_plain(kernel, plain, GN_KERNEL_REL)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,nq,nk,h", [(16, 2304, 2304, 5), (16, 2304, 16, 5), (2, 128, 80, 2)])
+@pytest.mark.parametrize("b,nq,nk,h", [
+    (16, 2304, 2304, 5), (16, 576, 576, 10), (2, 128, 80, 2),   # K2b wgmma
+    (16, 2304, 16, 5), (16, 576, 16, 10),                       # K2b image: query chunks
+])
 def test_flash_attention_backward_kernel_matches_plain(b, nq, nk, h):
     dev = cuda_or_skip()
     g = torch.Generator(device=dev).manual_seed(1)

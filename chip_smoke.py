@@ -93,7 +93,9 @@ the final `ok` line):
    and K3b) and a second launch (bit for bit), timed warm and cold
    beside its bound and the library call's backward (F.group_norm, SDPA
    through torch.autograd), with its launches per training step and the
-   path its plan takes (K1b coop / two_pass, K2b wgmma / image).
+   path its plan takes (K1b coop / two_pass, K2b wgmma / image, K3b's ring
+   of warps and slots); first, K3b's six instances in the built library
+   (cuobjdump): registers, no spills, mma.sync and movmatrix in the SASS.
 15. train_repeat: one full-width training step run twice from the same
    state and batch: loss and state repeat bit for bit.
 16. train_reference: one tiny-preset step, bf16 on the card against float32
@@ -1402,8 +1404,10 @@ def bwd_bound_ms(name, key):
     (x and dy, or q, k, v, o, dO and the log-sum-exp) and each gradient
     written once, against the operations the backward needs: GroupNorm 10
     f32 operations per element (21 with the SiLU); attention five products
-    (S, dP, dV, dQ, dK: 10 N_q N_k d), bf16 for K2b, f32 for K3b (it
-    multiplies on the f32 pipes)."""
+    (S, dP, dV, dQ, dK: 10 N_q N_k d) in bf16 on the tensor cores. For K3b
+    the bytes bound every training shape (at N = 16 its products would take
+    a twentieth of the memory's time even at the f32 peak), so its sum of
+    bounds is the same as when it multiplied on the f32 pipes."""
     if name == "group_norm":
         n, s, c, silu = key
         elems = n * s * c
@@ -1413,7 +1417,7 @@ def bwd_bound_ms(name, key):
         return _bound(2 * 64 * h * b * (4 * nq + 4 * nk) + 4 * b * h * nq,
                       10 * b * h * nq * nk * 64, PEAK_BF16)
     p, n, c, heads = key
-    return _bound(2 * 7 * p * n * c, 10 * p * n * n * c, PEAK_F32)
+    return _bound(2 * 7 * p * n * c, 10 * p * n * n * c, PEAK_BF16)
 
 
 def bwd_calls(name, key, g, dev):
@@ -1472,11 +1476,13 @@ def bwd_calls(name, key, g, dev):
 
 
 def bwd_path(name, key, dev):
-    """The path of a backward kernel's plan at shape `key` ("-" for K3b,
-    which has one path)."""
+    """The path of a backward kernel's plan at shape `key`; for K3b, which
+    has one path, its ring: warps x slots per warp, blocks and shared
+    memory per block."""
     from geo4d_tpu_torch.nn.basics import num_groups_for
     from geo4d_tpu_torch.ops import flash_attention as fa
     from geo4d_tpu_torch.ops import group_norm as gn
+    from geo4d_tpu_torch.ops import temporal_attention as ta
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if name == "group_norm":
@@ -1484,7 +1490,38 @@ def bwd_path(name, key, dev):
         return gn.backward_plan(n, s, c, num_groups_for(c), sms)[0]
     if name == "flash_attention":
         return fa.backward_plan(*key, sms).path
-    return "-"
+    pl = ta.backward_plan(*key, sms)
+    return f"ring:{pl.warps}x{pl.stages},grid={pl.grid},smem={pl.smem}"
+
+
+def check_k3b_build():
+    """Every instance of K3b in the built library, read back with the
+    toolkit's cuobjdump: registers, no spills (STACK and LOCAL 0), and
+    mma.sync (HMMA) and movmatrix (MOVM) in its SASS."""
+    from geo4d_tpu_torch.ops import dispatch
+
+    tool = os.path.join(os.path.dirname(dispatch._nvcc()), "cuobjdump")
+    lib = str(dispatch.library_path())
+    usage = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                           check=True).stdout
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    found = 0
+    lines = usage.splitlines()
+    for i, line in enumerate(lines):
+        if "Function" in line and "temporal_attn_bwd_kernel" in line:
+            fields = dict(t.split(":", 1) for t in lines[i + 1].split() if ":" in t)
+            name = line.split("Function", 1)[1].strip(" :")
+            body = sass.split(f"Function : {name}", 1)[1].split("Function : ", 1)[0]
+            found += 1
+            print(f"backward temporal_attention build: {name} REG {fields['REG']} STACK "
+                  f"{fields['STACK']} LOCAL {fields['LOCAL']} HMMA.16816 "
+                  f"{body.count('HMMA.16816')} MOVM {body.count('MOVM')}", flush=True)
+            if (int(fields["STACK"]) or int(fields["LOCAL"]) or "HMMA.16816" not in body
+                    or "MOVM" not in body):
+                raise AssertionError(f"K3b instance {name}: spills or no mma.sync / movmatrix")
+    if found != 6:
+        raise AssertionError(f"K3b: {found} instances in {lib}, expected 6")
 
 
 def backward_phase(dev, train_shapes, steps, vae_shapes):
@@ -1493,7 +1530,10 @@ def backward_phase(dev, train_shapes, steps, vae_shapes):
     `vae_train` launched: checked against its plain backward on a seeded
     cotangent (relative L2 of each gradient <= BWD_REL_L2[name]) and a second launch
     (bit for bit), timed warm and cold beside its bound and the library
-    call's backward. Returns each kernel's summary row and per-step totals."""
+    call's backward; K3b's instances first read back from the library
+    (`check_k3b_build`). Returns each kernel's summary row and per-step
+    totals."""
+    check_k3b_build()
     g = torch.Generator(device=dev).manual_seed(11)
     results, totals = {}, {}
     for name in KERNELS:

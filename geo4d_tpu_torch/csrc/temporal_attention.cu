@@ -59,15 +59,33 @@
 // Backward (K3b, `temporal_attention_bwd`): dq, dk and dv of the same jobs
 // for the cotangent dO, in the same layout. No TPU kernel had a backward
 // (the JAX package differentiates its XLA path). Bound: memory again (read
-// q, k, v, dO, write dq, dk, dv: 7 * P * N * C * 2 bytes against about 10 *
-// N * N * C flops), so the first version keeps the arithmetic simple: one
-// warp per (pixel, head) job, scalar f32 on bf16 tiles in shared memory
-// (rows padded to an odd number of words, so the lanes of one column hit
-// distinct banks). The warp recomputes the logits and the f32 softmax P
-// (N <= 32: the whole row at once), then dV = bf16(P)^T dO (the weights the
-// forward multiplied V by), dP = dO V^T, dS = P (dP - rowsum(dP P)),
-// dQ = dS K s and dK = dS^T Q s. No job reduces across another and each
-// sum runs in one order, so the kernel repeats bit for bit.
+// q, k, v, dO and write dq, dk, dv: 7 * P * N * C * 2 bytes against
+// 10 * P * N * N * C flops, 11 flops a byte at N = 16), so, as in K3, the
+// arithmetic only has to stay out of the way of the copies. K3's design:
+//   * one warp per job; each warp a ring of `stages` slots of four tiles (q,
+//     k, v, dO; rows padded as above) filled by cp.async, no block-wide
+//     barrier. The plan is ops/temporal_attention.py `backward_plan`: 12
+//     warps of 2 slots (221 KB), one block per SM, at N = 16, Dh = 64;
+//   * the five products on mma.sync.m16n8k16, in the row orientation:
+//     S = Q K^T and dP = dO V^T put a softmax row on the 4 lanes of a quad,
+//     where two shfl_xor steps give its max, its sum and rowsum(dP P), as in
+//     K3. P and dS = P (dP - rowsum(dP P)), rounded to bf16 pairs, are the A
+//     fragments of dQ = dS K s as they stand, and movmatrix.trans turns their
+//     8 x 8 blocks into the A fragments of dV = bf16(P)^T dO and
+//     dK = dS^T Q s (8 movmatrix a job at N <= 16). The transposed
+//     orientation (S^T = K Q^T, as K2b) would give dV and dK their A
+//     fragments directly but reduce the softmax down accumulator columns
+//     (across the 8 quads) and need the transposes for dQ instead. K, dO and
+//     Q are B operands through ldmatrix.trans. Each pair of an output's n8
+//     column tiles is summed over its k-steps and stored at once, so 8
+//     accumulators are live; P and dS stay as 4 * KS^2 registers each, and
+//     no fragment of the tiles is held across products (Dh = 128 fits);
+//   * dV is staged in the v tile, dQ in the dO tile and dK in the k tile,
+//     each once the tile it replaces has been read for the last time, then
+//     stored as whole 16-byte chunks, 8 lanes on one 128-byte row segment.
+// Rounding dS to bf16 puts the gradients about 3e-3 (relative L2) from the
+// f32 plain backward. Edges as in K3 (pad rows give zero gradients). No
+// atomics, one order for every sum: a launch repeats bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -372,137 +390,341 @@ extern "C" int temporal_attention(const void* q, const void* k, const void* v, v
   return (int)cudaGetLastError();
 }
 
+
 namespace {
 
-constexpr int kBwdWarps = 4;
-
-// one job's tiles in shared memory: q, k, v, dO as N x (Dh + 2) bf16, then
-// S / P and dP / dS as N x (N + 1) f32
-__host__ __device__ inline size_t bwd_job_smem(int N, int Dh) {
-  return (size_t)4 * N * (Dh + 2) * 2 + (size_t)2 * N * (N + 1) * 4;
+// transpose of an 8 x 8 bf16 matrix held as one pair a lane (lane 4 g + c:
+// row g, columns 2 c and 2 c + 1, the layout of ldmatrix and of a packed
+// m16n8 accumulator half): the lane then holds row g, columns 2 c, 2 c + 1
+// of the transpose
+__device__ __forceinline__ uint32_t movtrans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(kBwdWarps * 32)
+// Rows m0 .. m0 + 15 of `dst` (those < N) = (A B) * mul in bf16. A is one
+// 16-row tile, given as the A fragments a[ks] of its KS k-steps; B is the
+// (16 KS) x Dh tile at shared address `src` (row-major, row stride rs), read
+// by ldmatrix.trans as K3 reads V. Each pair of n8 column tiles is summed
+// over the k-steps in order and stored at once, so 8 accumulators are live.
+template <int DMAX, int KS>
+__device__ __forceinline__ void product_rows(uint32_t (&a)[KS][4], uint32_t src,
+                                             __nv_bfloat16* dst, int m0, int rs, int N, int Dh,
+                                             float mul, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  const int t_row = (lane & 7) + ((lane >> 3) & 1) * 8, t_col = (lane >> 4) * 8;
+  const int r0 = m0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int dp = 0; dp < DMAX / 16; ++dp) {
+    if (dp * 16 < Dh) {
+      const bool half = Dh - dp * 16 == 8;  // columns dp*16+8.. lie outside the head
+      float acc[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t b[4];
+        ldsm_x4_trans(src + ((ks * 16 + t_row) * rs + dp * 16 + (half ? 0 : t_col)) * 2, b);
+        mma_16816(acc[0], a[ks], b[0], b[1]);
+        if (!half) mma_16816(acc[1], a[ks], b[2], b[3]);
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        if (t == 0 || !half) {
+          const int col = dp * 16 + t * 8 + tig * 2;
+          if (r0 < N)
+            *reinterpret_cast<uint32_t*>(dst + r0 * rs + col) =
+                pack_bf16(acc[t][0] * mul, acc[t][1] * mul);
+          if (r1 < N)
+            *reinterpret_cast<uint32_t*>(dst + r1 * rs + col) =
+                pack_bf16(acc[t][2] * mul, acc[t][3] * mul);
+        }
+      }
+    }
+  }
+}
+
+// One job's gradients from its slot: q, k, v and dO tiles of 16 * KS rows at
+// a row stride of `rs` bf16 (rows >= N are zero). Leaves dV (rows < N) in
+// the v tile, dQ in the dO tile and dK in the k tile.
+template <int DMAX, int KS>
+__device__ __forceinline__ void attend_bwd(__nv_bfloat16* tile, int tensor, int rs, int N, int Dh,
+                                           float scale, float scale_log2, int lane) {
+  constexpr int kSteps = DMAX / 16;  // k-steps of Q K^T and dO V^T
+  constexpr int kKeyTiles = 2 * KS;  // n8 key tiles
+  __nv_bfloat16 *tq = tile, *tk = tq + tensor, *tv = tk + tensor, *tdo = tv + tensor;
+  const uint32_t sq = smem_u32(tq), sk = smem_u32(tk), sv = smem_u32(tv), sdo = smem_u32(tdo);
+  const int tig = lane & 3;
+  // ldmatrix row addresses, as in `attend`: A (Q, dO) matrices 0 / 1 rows
+  // 0-7 / 8-15, 2 / 3 the same rows 8 columns on; B (K, V; n = key)
+  // matrices 0 / 1 keys 0-7 at columns +0 / +8, 2 / 3 keys 8-15
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+
+  // P and dS of every query tile as bf16 pairs: [mt][kb][h] holds row
+  // 16 mt + 8 h + g (g = lane / 4), keys 8 kb + 2 tig and + 1
+  uint32_t pp[KS][kKeyTiles][2], dsp[KS][kKeyTiles][2];
+#pragma unroll
+  for (int mt = 0; mt < KS; ++mt) {
+    float s[kKeyTiles][4] = {}, dp[kKeyTiles][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if (kk * 16 < Dh) {
+        const bool half = Dh - kk * 16 == 8;
+        const int a_off = ((mt * 16 + a_row) * rs + kk * 16 + (half ? 0 : a_col)) * 2;
+        uint32_t a[4], ad[4];
+        ldsm_x4(sq + a_off, a);
+        ldsm_x4(sdo + a_off, ad);
+        if (half) a[2] = a[3] = ad[2] = ad[3] = 0u;
+#pragma unroll
+        for (int np = 0; np < KS; ++np) {
+          const int b_off = ((np * 16 + b_row) * rs + kk * 16 + (half ? 0 : b_col)) * 2;
+          uint32_t b[4], bv[4];
+          ldsm_x4(sk + b_off, b);
+          ldsm_x4(sv + b_off, bv);
+          if (half) b[1] = b[3] = bv[1] = bv[3] = 0u;
+          mma_16816(s[2 * np], a, b[0], b[1]);
+          mma_16816(s[2 * np + 1], a, b[2], b[3]);
+          mma_16816(dp[2 * np], ad, bv[0], bv[1]);
+          mma_16816(dp[2 * np + 1], ad, bv[2], bv[3]);
+        }
+      }
+    }
+
+    // f32 softmax of rows g (elements 0, 1) and g + 8 (2, 3), as in `attend`
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool key = nt * 8 + tig * 2 + e < N;
+        s[nt][e] = key ? s[nt][e] * scale_log2 : -INFINITY;
+        s[nt][2 + e] = key ? s[nt][2 + e] * scale_log2 : -INFINITY;
+        mx0 = fmaxf(mx0, s[nt][e]);
+        mx1 = fmaxf(mx1, s[nt][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nt][e] = ex2(s[nt][e] - mx0);
+        s[nt][2 + e] = ex2(s[nt][2 + e] - mx1);
+        sum0 += s[nt][e];
+        sum1 += s[nt][2 + e];
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+    }
+    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+    // P, then rowsum(dP P) (masked keys have P = 0 and dP = 0)
+    float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nt][e] *= inv0;
+        s[nt][2 + e] *= inv1;
+        r0 = fmaf(dp[nt][e], s[nt][e], r0);
+        r1 = fmaf(dp[nt][2 + e], s[nt][2 + e], r1);
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      r0 += __shfl_xor_sync(0xffffffffu, r0, x);
+      r1 += __shfl_xor_sync(0xffffffffu, r1, x);
+    }
+    // dS = P (dP - rowsum(dP P)); both rounded to bf16 for the tensor cores
+#pragma unroll
+    for (int nt = 0; nt < kKeyTiles; ++nt) {
+      pp[mt][nt][0] = pack_bf16(s[nt][0], s[nt][1]);
+      pp[mt][nt][1] = pack_bf16(s[nt][2], s[nt][3]);
+      dsp[mt][nt][0] = pack_bf16(s[nt][0] * (dp[nt][0] - r0), s[nt][1] * (dp[nt][1] - r0));
+      dsp[mt][nt][1] = pack_bf16(s[nt][2] * (dp[nt][2] - r1), s[nt][3] * (dp[nt][3] - r1));
+    }
+  }
+
+  uint32_t a[KS][4];
+  __syncwarp();  // every lane has read the v tile: dV goes there
+  // dV = bf16(P)^T dO, a 16-key tile at a time: the A fragment of keys mk,
+  // queries ks is P's four 8 x 8 blocks (queries 16 ks.., keys 16 mk..)
+  // transposed
+#pragma unroll
+  for (int mk = 0; mk < KS; ++mk) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      a[ks][0] = movtrans(pp[ks][2 * mk][0]);
+      a[ks][1] = movtrans(pp[ks][2 * mk + 1][0]);
+      a[ks][2] = movtrans(pp[ks][2 * mk][1]);
+      a[ks][3] = movtrans(pp[ks][2 * mk + 1][1]);
+    }
+    product_rows<DMAX, KS>(a, sdo, tv, mk * 16, rs, N, Dh, 1.f, lane);
+  }
+  __syncwarp();  // ... the dO tile: dQ goes there
+  // dQ = dS K s: dS's pairs are the A fragments as they stand (K3's P)
+#pragma unroll
+  for (int mt = 0; mt < KS; ++mt) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      a[ks][0] = dsp[mt][2 * ks][0];
+      a[ks][1] = dsp[mt][2 * ks][1];
+      a[ks][2] = dsp[mt][2 * ks + 1][0];
+      a[ks][3] = dsp[mt][2 * ks + 1][1];
+    }
+    product_rows<DMAX, KS>(a, sk, tdo, mt * 16, rs, N, Dh, scale, lane);
+  }
+  __syncwarp();  // ... the k tile: dK goes there
+  // dK = dS^T Q s, dS^T as P^T for dV
+#pragma unroll
+  for (int mk = 0; mk < KS; ++mk) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      a[ks][0] = movtrans(dsp[ks][2 * mk][0]);
+      a[ks][1] = movtrans(dsp[ks][2 * mk + 1][0]);
+      a[ks][2] = movtrans(dsp[ks][2 * mk][1]);
+      a[ks][3] = movtrans(dsp[ks][2 * mk + 1][1]);
+    }
+    product_rows<DMAX, KS>(a, sq, tk, mk * 16, rs, N, Dh, scale, lane);
+  }
+}
+
+// K3b's grid and rings are K3's: `gridDim.x` blocks of W warps, block b the
+// jobs [b * jobs / grid, (b + 1) * jobs / grid), warp w the jobs
+// start + w + i * W, each warp a ring of `stages` slots of four (16 * KS) x rs
+// bf16 tiles (q, k, v, dO).
+template <int DMAX, int KS>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
 temporal_attn_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                          __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int N, int C, int Dh, int heads, int jobs,
-                         float scale) {
+                         int stages, int rs, float scale, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int job = blockIdx.x * kBwdWarps + warp;
-  if (job >= jobs) return;  // no block-wide barrier below
-  const int rs = Dh + 2;    // bf16 per tile row: an odd number of 32-bit words
-  const int ns = N + 1;
-  unsigned char* mine = smem + (size_t)warp * bwd_job_smem(N, Dh);
-  __nv_bfloat16* tq = reinterpret_cast<__nv_bfloat16*>(mine);
-  __nv_bfloat16* tk = tq + N * rs;
-  __nv_bfloat16* tv = tk + N * rs;
-  __nv_bfloat16* tdo = tv + N * rs;
-  float* sp = reinterpret_cast<float*>(tdo + N * rs);  // S, then P
-  float* sd = sp + N * ns;                              // dP, then dS
-  const size_t base = (size_t)(job / heads) * N * C + (size_t)(job % heads) * Dh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, W = blockDim.x >> 5;
+  const int tensor = 16 * KS * rs;  // bf16 of one tile
+  const int slot = 4 * tensor;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem) + (size_t)warp * stages * slot;
 
-  // 16-byte loads from device memory, 4-byte stores into the padded rows
-  const int dc = Dh / 8;
-  for (int e = lane; e < N * dc; e += 32) {
-    const int r = e / dc, c = (e % dc) * 8;
-    const size_t g = base + (size_t)r * C + c;
-    const __nv_bfloat16* src[4] = {q + g, k + g, v + g, dout + g};
-    __nv_bfloat16* dst[4] = {tq, tk, tv, tdo};
+  const int start = (int)((long long)blockIdx.x * jobs / gridDim.x);
+  const int end = (int)(((long long)blockIdx.x + 1) * jobs / gridDim.x);
+  const int first = start + warp;
+  const int count = first < end ? (end - first + W - 1) / W : 0;
+  if (count == 0) return;  // no block-wide barrier below
+
+  if (N < 16 * KS) {  // the pad rows of every slot stay zero (copies and stages write rows < N)
+    uint4* z = reinterpret_cast<uint4*>(ring);
+    for (int i = lane; i < stages * slot / 8; i += 32) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+  }
+
+  // lane's 16-byte chunks of an N x Dh tile: (row, chunk) from lane, then
+  // +32 chunks at a time
+  const int dc = Dh / 8, lr = lane / dc, lc = lane % dc, step_r = 32 / dc, step_c = 32 % dc;
+  const int chunks = N * dc;
+
+  auto base = [&](int i) {
+    const int job = first + i * W;
+    return (size_t)(job / heads) * N * C + (size_t)(job % heads) * Dh;
+  };
+  auto load = [&](int i) {
+    const size_t g = base(i);
+    const uint32_t dst = smem_u32(ring + (size_t)(i % stages) * slot);
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      const uint4 u = *reinterpret_cast<const uint4*>(src[t]);
-      uint32_t* w = reinterpret_cast<uint32_t*>(dst[t] + r * rs + c);
-      w[0] = u.x;
-      w[1] = u.y;
-      w[2] = u.z;
-      w[3] = u.w;
-    }
-  }
-  __syncwarp();
-
-  // S = q k^T s and dP = dO v^T: entry e = (i, j) per lane, dot over Dh
-  for (int e = lane; e < N * N; e += 32) {
-    const int i = e / N, j = e % N;
-    const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(tq + i * rs);
-    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(tk + j * rs);
-    const __nv_bfloat162* c = reinterpret_cast<const __nv_bfloat162*>(tdo + i * rs);
-    const __nv_bfloat162* d = reinterpret_cast<const __nv_bfloat162*>(tv + j * rs);
-    float s = 0.f, p = 0.f;
-    for (int t = 0; t < Dh / 2; ++t) {
-      const float2 fa = __bfloat1622float2(a[t]), fb = __bfloat1622float2(b[t]);
-      const float2 fc = __bfloat1622float2(c[t]), fd = __bfloat1622float2(d[t]);
-      s = fmaf(fa.x, fb.x, s);
-      s = fmaf(fa.y, fb.y, s);
-      p = fmaf(fc.x, fd.x, p);
-      p = fmaf(fc.y, fd.y, p);
-    }
-    sp[i * ns + j] = s * scale;
-    sd[i * ns + j] = p;
-  }
-  __syncwarp();
-
-  // softmax of row i in f32, then dS = P (dP - rowsum(dP P)); lane i, i < N
-  if (lane < N) {
-    float* srow = sp + lane * ns;
-    float* drow = sd + lane * ns;
-    float mx = -INFINITY;
-    for (int j = 0; j < N; ++j) mx = fmaxf(mx, srow[j]);
-    float sum = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float ex = __expf(srow[j] - mx);
-      srow[j] = ex;
-      sum += ex;
-    }
-    const float inv = 1.f / sum;
-    float r = 0.f;
-    for (int j = 0; j < N; ++j) {
-      srow[j] *= inv;
-      r = fmaf(drow[j], srow[j], r);
-    }
-    for (int j = 0; j < N; ++j) drow[j] = srow[j] * (drow[j] - r);
-  }
-  __syncwarp();
-
-  // dV[j] = sum_i bf16(P[i][j]) dO[i]; dQ[i] = s sum_j dS[i][j] k[j];
-  // dK[j] = s sum_i dS[i][j] q[i]: lane over the head's columns
-  for (int col = lane; col < Dh; col += 32) {
-    for (int j = 0; j < N; ++j) {
-      float accv = 0.f, acck = 0.f, accq = 0.f;
-      for (int i = 0; i < N; ++i) {
-        const float pij = __bfloat162float(__float2bfloat16(sp[i * ns + j]));
-        accv = fmaf(pij, __bfloat162float(tdo[i * rs + col]), accv);
-        acck = fmaf(sd[i * ns + j], __bfloat162float(tq[i * rs + col]), acck);
-        accq = fmaf(sd[j * ns + i], __bfloat162float(tk[i * rs + col]), accq);
+      const __nv_bfloat16* src = (t == 0 ? q : t == 1 ? k : t == 2 ? v : dout) + g;
+      const uint32_t d = dst + t * tensor * 2;
+      int r = lr, c = lc;
+      for (int e = lane; e < chunks; e += 32) {
+        cp_async16(d + (r * rs + c * 8) * 2, src + (size_t)r * C + c * 8);
+        r += step_r;
+        c += step_c;
+        if (c >= dc) {
+          c -= dc;
+          ++r;
+        }
       }
-      const size_t g = base + (size_t)j * C + col;
-      dv[g] = __float2bfloat16(accv);
-      dk[g] = __float2bfloat16(acck * scale);
-      dq[g] = __float2bfloat16(accq * scale);
     }
+  };
+
+  for (int i = 0; i < stages - 1; ++i) {
+    if (i < count) load(i);
+    cp_async_commit();  // one group per stage, empty or not, keeps the count
   }
+  for (int i = 0; i < count; ++i) {
+    if (i + stages - 1 < count) load(i + stages - 1);
+    cp_async_commit();
+    cp_async_wait(stages - 1);  // job i's copies have landed (this lane's)
+    __syncwarp();               // ... and every lane's
+    __nv_bfloat16* tile = ring + (size_t)(i % stages) * slot;
+    attend_bwd<DMAX, KS>(tile, tensor, rs, N, Dh, scale, scale_log2, lane);
+    __syncwarp();
+    // whole 16-byte chunks: dV from the v tile, dQ from the dO tile, dK from
+    // the k tile
+    const size_t g = base(i);
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const __nv_bfloat16* from = tile + (t == 0 ? 2 : t == 1 ? 3 : 1) * tensor;
+      __nv_bfloat16* out = (t == 0 ? dv : t == 1 ? dq : dk) + g;
+      int r = lr, c = lc;
+      for (int e = lane; e < chunks; e += 32) {
+        *reinterpret_cast<uint4*>(out + (size_t)r * C + c * 8) =
+            *reinterpret_cast<const uint4*>(from + r * rs + c * 8);
+        r += step_r;
+        c += step_c;
+        if (c >= dc) {
+          c -= dc;
+          ++r;
+        }
+      }
+    }
+    __syncwarp();  // the slot is read out before the next iteration refills it
+  }
+  cp_async_wait(0);
+}
+
+using BwdKernelFn = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+                             const __nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*,
+                             int, int, int, int, int, int, int, float, float);
+
+BwdKernelFn pick_bwd(int Dh, int ks) {
+  if (Dh <= 32) return ks == 1 ? temporal_attn_bwd_kernel<32, 1> : temporal_attn_bwd_kernel<32, 2>;
+  if (Dh <= 64) return ks == 1 ? temporal_attn_bwd_kernel<64, 1> : temporal_attn_bwd_kernel<64, 2>;
+  return ks == 1 ? temporal_attn_bwd_kernel<128, 1> : temporal_attn_bwd_kernel<128, 2>;
 }
 
 }  // namespace
 
-// K3b: one warp per (pixel, head) job, kBwdWarps warps per block.
+// K3b, one launch on the plan of ops/temporal_attention.py `backward_plan`:
+// `warps` warps per block, `stages` job slots per warp (four tiles each),
+// `grid` blocks; the shared memory sized by the same rule as there.
 extern "C" int temporal_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* dout, void* dq, void* dk, void* dv, int P,
-                                      int N, int C, int Dh, float scale, void* stream) {
+                                      int N, int C, int Dh, float scale, int warps, int stages,
+                                      int grid, void* stream) {
   if (P < 1 || N < 1 || N > 32 || Dh < 8 || Dh > 128 || Dh % 8 != 0 || C % Dh != 0 ||
-      (long long)P * (C / Dh) > 0x7fffffff)
+      (long long)P * (C / Dh) > 0x7fffffff || warps < 1 || warps > kMaxWarps || stages < 1 ||
+      stages > kMaxStages || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const int heads = C / Dh, jobs = P * heads;
-  const size_t smem = kBwdWarps * bwd_job_smem(N, Dh);
+  const int ks = N > 16 ? 2 : 1;
+  const int dc = Dh / 8;
+  const int rs = 8 * (dc % 2 ? dc : dc + 1);
+  const size_t smem = (size_t)warps * stages * 4 * 16 * ks * rs * 2;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      temporal_attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const BwdKernelFn fn = pick_bwd(Dh, ks);
+  const cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  temporal_attn_bwd_kernel<<<(jobs + kBwdWarps - 1) / kBwdWarps, kBwdWarps * 32, smem,
-                             (cudaStream_t)stream>>>(
+  fn<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (const __nv_bfloat16*)dout, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, N,
-      C, Dh, heads, jobs, scale);
+      C, Dh, C / Dh, P * (C / Dh), stages, rs, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }

@@ -55,7 +55,8 @@ _SIGNATURES = {
     "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                             _P],
     "temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    "temporal_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "temporal_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                               _P],
 }
 
 

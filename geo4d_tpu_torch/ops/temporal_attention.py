@@ -11,7 +11,8 @@ slots) on the launch `plan`; on a CPU tensor it runs
 
 When autograd records the call, the forward keeps q, k and v (N <= 32, so
 the backward recomputes the softmax); the backward launches K3b
-(`temporal_attention_bwd` in the same source: one warp per job, no job
+(`temporal_attention_bwd` in the same source: K3's warps, rings and
+mma.sync products, four tiles a slot, on the launch `backward_plan`; no job
 reduces across another) or, on the CPU, `temporal_attention_backward_plain`.
 """
 
@@ -58,9 +59,10 @@ def row_elems(d: int) -> int:
     return 8 * (chunks if chunks % 2 else chunks + 1)
 
 
-def job_smem(n: int, d: int) -> int:
-    """Bytes of one job slot: q, k and v tiles of 16 * ceil(N / 16) rows."""
-    return 3 * 16 * math.ceil(n / 16) * row_elems(d) * 2
+def job_smem(n: int, d: int, tiles: int = 3) -> int:
+    """Bytes of one job slot: `tiles` tiles of 16 * ceil(N / 16) rows (K3:
+    q, k and v; K3b: q, k, v and dO)."""
+    return tiles * 16 * math.ceil(n / 16) * row_elems(d) * 2
 
 
 def plan(p: int, n: int, c: int, heads: int, sms: int = SM_COUNT) -> Plan:
@@ -72,9 +74,17 @@ def plan(p: int, n: int, c: int, heads: int, sms: int = SM_COUNT) -> Plan:
     warps of 2 slots, each with its next job's 6 KB of copies in flight
     while it computes one (faster on the card than 8 warps of 4 slots;
     PERF.md has both)."""
-    d = c // heads
-    jobs = p * heads
-    slot = job_smem(n, d)
+    return _ring_plan(p * heads, job_smem(n, c // heads), sms)
+
+
+def backward_plan(p: int, n: int, c: int, heads: int, sms: int = SM_COUNT) -> Plan:
+    """K3b's launch plan, by `plan`'s rule with slots of four tiles: at
+    N = 16, d = 64 a slot is 9 KB, so 12 warps of 2 slots (221 KB), each
+    with its next job's 8 KB of copies in flight while it computes one."""
+    return _ring_plan(p * heads, job_smem(n, c // heads, tiles=4), sms)
+
+
+def _ring_plan(jobs: int, slot: int, sms: int) -> Plan:
     grid = min(sms, jobs)
     per_block = math.ceil(jobs / grid)
     warps = max(1, min(MAX_WARPS, per_block, SMEM_PER_BLOCK // (2 * slot)))
@@ -154,15 +164,17 @@ def _forward_kernel(q, k, v, n_heads):
 def temporal_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 do: torch.Tensor, n_heads: int):
     """K3b on CUDA tensors: (dq, dk, dv) for the cotangent do, one warp per
-    (pixel, head) job recomputing its softmax. Repeats bit for bit."""
+    (pixel, head) job recomputing its softmax, on `backward_plan`. Repeats
+    bit for bit."""
     p, n, c, d = _checked(q, k, v, n_heads)
     _checked(do, do, do, n_heads)
     require(do.shape == q.shape and do.device == q.device, "dO must have q's shape and device")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    pl = backward_plan(p, n, c, n_heads, sm_count(q.device.index))
     err = kernels().temporal_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                            do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                           dv.data_ptr(), p, n, c, d, d ** -0.5,
-                                           stream_handle(q))
+                                           dv.data_ptr(), p, n, c, d, d ** -0.5, pl.warps,
+                                           pl.stages, pl.grid, stream_handle(q))
     check_launch("temporal_attention_bwd", err)
     stats.note_backward((p, n, c, n_heads))
     return dq, dk, dv

@@ -179,6 +179,19 @@ def rel_err(got, want) -> float:
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
 
 
+def kernel_jobs(plan, jobs: int) -> list:
+    """The jobs each warp of each block takes, as csrc/temporal_attention.cu
+    splits them for K3 and K3b: block b the range [b * jobs // grid,
+    (b + 1) * jobs // grid), warp w every warps-th job of it from the w-th."""
+    taken = []
+    for b in range(plan.grid):
+        start, end = b * jobs // plan.grid, (b + 1) * jobs // plan.grid
+        assert end - start <= plan.jobs_per_block
+        for w in range(plan.warps):
+            taken += range(start + w, end, plan.warps)
+    return taken
+
+
 def cuda_or_skip() -> torch.device:
     """Decide inside a test whether there is a card (never at import)."""
     import pytest

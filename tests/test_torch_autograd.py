@@ -232,8 +232,12 @@ def test_flash_attention_backward_kernel_matches_plain(b, nq, nk, h):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p,n,c,heads", [(2304, 16, 320, 5), (576, 17, 640, 10),
-                                         (333, 32, 72, 3)])
+@pytest.mark.parametrize("p,n,c,heads", [
+    (2304, 16, 320, 5), (576, 17, 640, 10), (333, 32, 72, 3),
+    (37, 1, 192, 3), (37, 5, 24, 3),            # one frame; five frames at d = 8
+    (100, 17, 1280, 10), (37, 32, 384, 3),      # d = 128: a pad row, two full tiles
+    (1001, 16, 320, 5),                         # 5005 jobs: blocks of 37 or 38 on 12 warps
+])
 def test_temporal_attention_backward_kernel_matches_plain(p, n, c, heads):
     dev = cuda_or_skip()
     g = torch.Generator(device=dev).manual_seed(2)

@@ -24,7 +24,7 @@ from geo4d_tpu_torch.ops import group_norm as gn
 from geo4d_tpu_torch.ops import temporal_attention as ta
 from geo4d_tpu_torch.pipeline.inference import align_predictions
 from geo4d_tpu_torch.tools.profile_aligner import synthetic_scene
-from _torch_parity import assert_close, cuda_or_skip
+from _torch_parity import assert_close, cuda_or_skip, kernel_jobs
 
 # (N, S, C) of every GroupNorm the slice's reconstruct launches (UNet, VAE)
 GN_MAIN_PATH = [
@@ -96,19 +96,6 @@ def test_group_norm_plan_boundary(c):
     assert gn.plan(1, s + 1, c, groups)[0] == "two_pass"
 
 
-def _kernel_jobs(plan, jobs):
-    """The jobs each warp of each block takes, as csrc/temporal_attention.cu
-    splits them: block b the range [b * jobs // grid, (b + 1) * jobs // grid),
-    warp w every warps-th job of it from the w-th."""
-    taken = []
-    for b in range(plan.grid):
-        start, end = b * jobs // plan.grid, (b + 1) * jobs // plan.grid
-        assert end - start <= plan.jobs_per_block
-        for w in range(plan.warps):
-            taken += range(start + w, end, plan.warps)
-    return taken
-
-
 @pytest.mark.parametrize("p,n,c,heads", TA_MAIN_PATH + TA_EDGES)
 def test_temporal_attention_plan(p, n, c, heads):
     pl = ta.plan(p, n, c, heads)
@@ -117,7 +104,7 @@ def test_temporal_attention_plan(p, n, c, heads):
     assert 1 <= pl.warps <= ta.MAX_WARPS and 2 <= pl.stages <= ta.MAX_STAGES
     assert pl.grid <= dispatch.SM_COUNT
     assert pl.grid * (pl.jobs_per_block - 1) < jobs <= pl.grid * pl.jobs_per_block
-    assert sorted(_kernel_jobs(pl, jobs)) == list(range(jobs))   # every job exactly once
+    assert sorted(kernel_jobs(pl, jobs)) == list(range(jobs))   # every job exactly once
 
 
 @pytest.mark.parametrize("p,n,c,heads", TA_MAIN_PATH)

@@ -102,6 +102,29 @@ the final `ok` line):
    on the CPU (loss and gradient), and the tiny CLI's 2 + resumed 1 steps
    against 3 uninterrupted steps (the same step-3 loss).
 
+17. parallel (geo4d_tpu_torch.parallel; NCCL refuses two ranks on one GPU,
+   so the card runs NCCL at world size 1 and two gloo ranks sharing cuda:0,
+   gloo taking the CUDA tensors; no speed claim):
+   (a) parallel_dryrun: `dryrun_multiprocess(2, "cpu")`, two gloo ranks on
+   the CPU, and `dryrun_multiprocess(2, "cuda", "gloo")`, two gloo ranks
+   sharing cuda:0 in bf16 through the kernels; (b) parallel_infer: two spawned ranks each build the flagship
+   (random-normal weights, seed 0) and run the slice's reconstruct with a
+   mesh (one window a rank, predictions gathered, rank 0 aligns with 500
+   iterations and writes and checks the results directory); K1-K3 must
+   launch in each rank, no plain version on a CUDA tensor; rank 0 compares
+   the gathered predictions with one process at window_batch 2 (relative
+   L2 at most PAR_INFER_REL_L2); (c)(i) the train_repeat step through the
+   DP and the FSDP path over NCCL at world size 1, each bit for bit equal
+   to the plain step; (ii) two spawned gloo ranks at the flagship's widths
+   and PAR_NUM_RES_BLOCKS, batch 1 a rank: a DP and an FSDP step from the
+   same state (bit for bit equal, K1b-K3b launched in each rank), against
+   one process at batch 2 (loss, the averaged gradient read from AdamW's
+   first moment, and the updated master weights); (iii)
+   cli/train.py under torch.distributed.run, two gloo ranks, --fsdp, 2
+   steps: rank 0 writes metrics.jsonl and ckpt_final, which loads into a
+   one-process UNet. Prints each sub-phase's wall, each rank's peak memory
+   and the seconds of collectives a step.
+
 The second-to-last line is a JSON object with one entry per kernel (the
 backward kernels from phases 12 and 14); the last line is
 {"ok": true, "device": {...}}.
@@ -109,6 +132,7 @@ backward kernels from phases 12 and 14); the last line is
     python3 chip_smoke.py --shapes-to FILE      # also save phase 5's shapes
     python3 chip_smoke.py --shapes-only FILE    # phases 1-2 and 5 only
     python3 chip_smoke.py --train-only          # phases 1-2 and 12-16 only
+    python3 chip_smoke.py --parallel-only       # phases 1-2, 15 and 17 only
 
 `--shapes-only` times the saved (kernel, shape, launches) list through the
 `geo4d_tpu_torch` beside this script; a copy of the script in an unpacked
@@ -494,7 +518,6 @@ def slice_phase(dev):
     from geo4d_tpu_torch.cli.common import prepare_inference_params
     from geo4d_tpu_torch.core.timing import StageTimer
     from geo4d_tpu_torch.models.presets import flagship, init_random_
-    from geo4d_tpu_torch.pipeline.export import save_results_dir
     from geo4d_tpu_torch.pipeline.inference import (InferenceConfig, WindowPredictor,
                                                     reconstruct, sliding_windows)
 
@@ -555,20 +578,7 @@ def slice_phase(dev):
     if not np.isfinite(scene.final_loss):
         raise AssertionError(f"aligner final loss {scene.final_loss}")
 
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        out_dir = os.path.join(tmp, "smoke")
-        save_results_dir(out_dir, scene, rgb_frames=frames)
-        traj = np.loadtxt(os.path.join(out_dir, "pred_traj.txt"))
-        K = np.loadtxt(os.path.join(out_dir, "pred_intrinsics.txt"))
-        depths = np.stack([np.load(os.path.join(out_dir, f"frame_{i:04d}.npy")) for i in range(20)])
-        confs = [os.path.exists(os.path.join(out_dir, f"conf_{i:04d}.npy")) for i in range(20)]
-    if traj.shape != (20, 8) or K.shape != (20, 9) or depths.shape != (20, h, w) or not all(confs):
-        raise AssertionError(f"results files: traj {traj.shape}, intrinsics {K.shape}, "
-                             f"depths {depths.shape}, conf files {sum(confs)}")
-    if not (np.isfinite(traj).all() and np.isfinite(K).all() and np.isfinite(depths).all()):
-        raise AssertionError("results files hold non-finite values")
-    export_s = time.perf_counter() - t0
+    traj, K, export_s = export_and_check(scene, frames)
 
     sec = timer.seconds
     align_iters = scene.cfg.n_iter
@@ -589,6 +599,29 @@ def slice_phase(dev):
     print(f"slice: prediction sums {json.dumps(sums)}; the warm-up's (same seed) "
           f"{'equal' if sums == warm_sums else json.dumps(warm_sums)}", flush=True)
     return launches, by_shape, model, text_ctx, uncond_text_ctx, scene
+
+
+def export_and_check(scene, frames):
+    """Write the results directory of a 20-frame scene to a temporary
+    directory and check its files (shapes, finite values); returns the
+    trajectory and intrinsics arrays and the seconds taken."""
+    from geo4d_tpu_torch.pipeline.export import save_results_dir
+
+    n, h, w = frames.shape[:3]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "smoke")
+        save_results_dir(out_dir, scene, rgb_frames=frames)
+        traj = np.loadtxt(os.path.join(out_dir, "pred_traj.txt"))
+        K = np.loadtxt(os.path.join(out_dir, "pred_intrinsics.txt"))
+        depths = np.stack([np.load(os.path.join(out_dir, f"frame_{i:04d}.npy")) for i in range(n)])
+        confs = [os.path.exists(os.path.join(out_dir, f"conf_{i:04d}.npy")) for i in range(n)]
+    if traj.shape != (n, 8) or K.shape != (n, 9) or depths.shape != (n, h, w) or not all(confs):
+        raise AssertionError(f"results files: traj {traj.shape}, intrinsics {K.shape}, "
+                             f"depths {depths.shape}, conf files {sum(confs)}")
+    if not (np.isfinite(traj).all() and np.isfinite(K).all() and np.isfinite(depths).all()):
+        raise AssertionError("results files hold non-finite values")
+    return traj, K, time.perf_counter() - t0
 
 
 def kernel_stats():
@@ -1355,7 +1388,7 @@ def vae_train_phase(dev):
     from geo4d_tpu_torch.models.autoencoder import AutoencoderKL
     from geo4d_tpu_torch.models.presets import init_random_
     from geo4d_tpu_torch.ops import group_norm as gn
-    from geo4d_tpu_torch.training.step import Draws
+    from geo4d_tpu_torch.core.draws import Draws
     from geo4d_tpu_torch.training.vae import (PatchDiscriminator, VAETrainConfig,
                                               make_vae_train_steps)
 
@@ -1595,15 +1628,12 @@ def state_fingerprint(state):
             for part in (state.params, state.exp_avg, state.exp_avg_sq, state.ema)]
 
 
-def train_repeat_phase(dev):
-    """One full-width training step (flagship, random-normal weights, one
-    16 x 256 x 576 pc_ray_cross_depth batch), run twice from the same state
-    and batch: the loss and every tensor of the state must repeat bit for
-    bit."""
+def flagship_train_setup(dev):
+    """The flagship (random-normal weights) with its towers frozen, and one
+    seeded 16 x 256 x 576 pc_ray_cross_depth batch built from it."""
     from geo4d_tpu_torch.models.presets import flagship, init_random_
     from geo4d_tpu_torch.training.modalities import build_batch
-    from geo4d_tpu_torch.training.step import (Draws, TrainConfig, create_train_state,
-                                               make_train_step)
+    from geo4d_tpu_torch.core.draws import Draws
 
     model = init_random_(flagship(), dev, seed=0).eval()
     model.text_encoder = None
@@ -1618,6 +1648,18 @@ def train_repeat_phase(dev):
     prompt = torch.randn((1, 77, 1024), generator=g, device=dev)
     batch = build_batch("pc_ray_cross_depth", model, raw, Draws.seeded([1, 0], dev), prompt,
                         torch.zeros_like(prompt))
+    return model, batch
+
+
+def train_repeat_phase(dev):
+    """One full-width training step (flagship, random-normal weights, one
+    16 x 256 x 576 pc_ray_cross_depth batch), run twice from the same state
+    and batch: the loss and every tensor of the state must repeat bit for
+    bit. Returns the step's (loss, state fingerprint)."""
+    from geo4d_tpu_torch.core.draws import Draws
+    from geo4d_tpu_torch.training.step import TrainConfig, create_train_state, make_train_step
+
+    model, batch = flagship_train_setup(dev)
     step_fn = make_train_step(model.unet, model.schedule, TrainConfig())
     runs = []
     for _ in range(2):
@@ -1636,6 +1678,7 @@ def train_repeat_phase(dev):
         raise AssertionError("train_repeat: the two steps from the same state differ")
     del model, batch
     torch.cuda.empty_cache()
+    return runs[0][:2]
 
 
 def train_reference_phase(dev):
@@ -1645,7 +1688,8 @@ def train_reference_phase(dev):
     against 2 steps, a checkpoint and a resumed third."""
     from geo4d_tpu_torch.cli import train
     from geo4d_tpu_torch.models.presets import tiny
-    from geo4d_tpu_torch.training.step import GivenDraws, TrainConfig, diffusion_loss
+    from geo4d_tpu_torch.core.draws import GivenDraws
+    from geo4d_tpu_torch.training.step import TrainConfig, diffusion_loss
 
     ref = tiny(temporal_length=4, dtype=torch.float32, device="cpu")
     gen = torch.Generator().manual_seed(13)
@@ -1697,6 +1741,371 @@ def train_reference_phase(dev):
                              "uninterrupted run's")
 
 
+# The parallel phase. NCCL refuses two ranks on one GPU ("Duplicate GPU
+# detected"), so its card runs are NCCL at world size 1 (the communicator
+# and collectives on CUDA tensors) and two gloo ranks sharing cuda:0 (the
+# cross-rank arithmetic with the kernels; gloo takes the CUDA tensors and
+# copies them through the host itself).
+# Neither is a speed claim.
+PAR_WORLD = 2
+# two ranks' windows (one each) against one process at window_batch 2:
+# relative L2 of each output
+PAR_INFER_REL_L2 = 1e-3
+# two training ranks keep the flagship's widths (model channels, channel
+# multipliers, heads) at this depth: two full-depth ranks need ~50 GB each
+PAR_NUM_RES_BLOCKS = 1
+# a 2-rank step at batch 1 a rank against one process at batch 2 (bf16 on
+# the card): the loss (relative) and the updated master weights (relative
+# L2 over the tree; an AdamW step moves a weight by ~lr sign(g), and a
+# gradient within bf16 rounding of zero may flip its sign). Measured on an
+# H100: 1.7e-7 and 2.4e-6.
+PAR_TRAIN_LOSS_REL = 1e-5
+PAR_TRAIN_PARAM_REL = 1e-4
+# ... and the averaged gradient, read from AdamW's first moment after the
+# step (0.1 g; relative L2 over the tree). The loss and the weights cannot
+# see the gradient's scale; this can: a reduction that forgot to divide by
+# the world size lands at 1.0, one that divided twice at 0.5.
+PAR_TRAIN_GRAD_REL = 1e-2
+STATE_PARTS = ("params", "exp_avg", "exp_avg_sq", "ema")
+
+
+def _rank_setup(rank, store):
+    """A spawned rank of the parallel phase: gloo on cuda:0, Pillow
+    unimportable, the parent's float32 precision."""
+    from geo4d_tpu_torch.parallel.mesh import init_distributed
+
+    sys.modules["PIL"] = None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return init_distributed("cuda", PAR_WORLD, rank=rank, world_size=PAR_WORLD, local_rank=rank,
+                            init_method="file://" + store, backend="gloo")
+
+
+def _rank_done(mesh, out_dir, result):
+    """Check what the rank loaded, write its result, leave the group."""
+    from geo4d_tpu_torch.parallel.dryrun import foreign_modules
+    from geo4d_tpu_torch.parallel.mesh import shutdown_distributed
+
+    if foreign_modules():
+        raise AssertionError(f"rank {mesh.rank} loaded {foreign_modules()[:5]}")
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(result, f)
+    mesh.barrier()
+    shutdown_distributed()
+
+
+def _spawn(fn, tmp):
+    """Run fn(rank, store, tmp) in PAR_WORLD processes; a failed rank
+    raises here. Returns the ranks' results and the wall time."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.spawn(fn, args=(os.path.join(tmp, "store"), tmp), nprocs=PAR_WORLD, join=True)
+    wall = time.perf_counter() - t0
+    results = []
+    for r in range(PAR_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, wall
+
+
+def _compare(got, want):
+    a, b = got.double(), want.double()
+    return {"rel_l2": float((a - b).norm() / b.norm().clamp_min(1e-30)),
+            "max_abs": float((a - b).abs().max()), "equal": bool(torch.equal(got, want))}
+
+
+def _infer_rank(rank, store, out_dir):
+    """The slice phase's reconstruct at full width, the windows shared by
+    the ranks; rank 0 aligns, exports and compares the gathered predictions
+    with one process at window_batch 2."""
+    from geo4d_tpu_torch.cli.common import prepare_inference_params
+    from geo4d_tpu_torch.core.timing import StageTimer
+    from geo4d_tpu_torch.models.presets import flagship, init_random_
+    from geo4d_tpu_torch.pipeline.inference import (InferenceConfig, WindowPredictor,
+                                                    reconstruct, sliding_windows)
+
+    mesh = _rank_setup(rank, store)
+    dev = mesh.device
+    model = init_random_(flagship(), dev, seed=0).eval()
+    text_ctx, uncond_text_ctx = prepare_inference_params(model, PROMPT)
+    frames = np.random.default_rng(0).integers(0, 256, size=(20, 256, 576, 3), dtype=np.uint8)
+    stats = kernel_stats()
+    for st in stats.values():
+        st.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = StageTimer(dev)
+    t0 = time.perf_counter()
+    scene, preds, timing = reconstruct(model, frames, text_ctx, fps=24, seed=123,
+                                       uncond_text_ctx=uncond_text_ctx, mesh=mesh, timer=timer)
+    torch.cuda.synchronize()
+    result = {"wall_s": time.perf_counter() - t0, "timing": timing, "stages": timer.seconds,
+              "peak_bytes": torch.cuda.max_memory_allocated(dev),
+              "launches": check_path_launches(f"parallel_infer rank {rank}", stats)}
+    if rank != 0:
+        if scene is not None:
+            raise AssertionError(f"parallel_infer: rank {rank} aligned")
+        return _rank_done(mesh, out_dir, result)
+    if scene is None or not np.isfinite(scene.final_loss):
+        raise AssertionError("parallel_infer: rank 0 did not align")
+    result["final_loss"] = scene.final_loss
+    result["export_s"] = export_and_check(scene, frames)[2]
+    one = WindowPredictor(model, InferenceConfig(window_batch=PAR_WORLD), device=dev).predict_video(
+        frames, sliding_windows(20, 16, 4), text_ctx, fps=24, seed=123,
+        uncond_text_ctx=uncond_text_ctx, return_device=True)
+    result["vs_one_process"] = {k: _compare(preds[k], one[k]) for k in one}
+    _rank_done(mesh, out_dir, result)
+
+
+def _par_train_batch(dev):
+    """A seeded latent batch of two 16 x 256 x 576 clips (the UNet's
+    inputs: 32 x 72 latents) and its text + image context."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    h, w = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    return {"z0": torch.randn((PAR_WORLD, TRAIN_T, h, w, 16), generator=g, device=dev),
+            "c_concat": torch.randn((PAR_WORLD, TRAIN_T, h, w, 4), generator=g, device=dev),
+            "context": torch.randn((PAR_WORLD, 77 + TRAIN_T * 16, 1024), generator=g, device=dev),
+            "fs": torch.full((PAR_WORLD,), 24, dtype=torch.int32, device=dev)}
+
+
+def _train_rank(rank, store, out_dir):
+    """A DP step and an FSDP step from the same state (the flagship's widths
+    at PAR_NUM_RES_BLOCKS, batch 1 a rank); each rank checks that its FSDP
+    slices equal its DP state's bit for bit; rank 0 then runs one process
+    at batch 2 and compares."""
+    from geo4d_tpu_torch.core.schedules import DiffusionSchedule
+    from geo4d_tpu_torch.core.timing import StageTimer
+    from geo4d_tpu_torch.models.presets import init_random_
+    from geo4d_tpu_torch.models.unet3d import UNet3D
+    from geo4d_tpu_torch.parallel.mesh import rank_rows
+    from geo4d_tpu_torch.parallel.sharding import ShardLayout, gather_state_dict
+    from geo4d_tpu_torch.core.draws import Draws
+    from geo4d_tpu_torch.training.step import TrainConfig, create_train_state, make_train_step
+
+    mesh = _rank_setup(rank, store)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = mesh.device
+    with torch.device("meta"):
+        unet = UNet3D(num_res_blocks=PAR_NUM_RES_BLOCKS)
+    init_random_(unet, dev, seed=0)
+    schedule, cfg = DiffusionSchedule.create(), TrainConfig(remat=True)
+    batch = _par_train_batch(dev)
+    mine = {k: v[rank_rows(PAR_WORLD, PAR_WORLD, rank)] for k, v in batch.items()}
+    layout = ShardLayout.build({n: p.shape for n, p in unet.named_parameters()}, mesh)
+    stats = kernel_stats()
+    result = {"parameters": sum(p.numel() for p in unet.parameters()),
+              "sharded_leaves": len(layout.sharded)}
+    for name, lay in (("dp", None), ("fsdp", layout)):
+        for st in stats.values():
+            st.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = create_train_state(unet, lay)
+        step = make_train_step(unet, schedule, cfg, mesh, lay)
+        timer = StageTimer(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, mine, Draws.seeded([1, 1], dev), timer)
+        torch.cuda.synchronize()
+        result[name] = {"loss": float(m["loss_simple"]), "step_s": time.perf_counter() - t0,
+                        "stages": timer.seconds,
+                        "collective_s": timer.seconds["gather"] + timer.seconds["reduce"],
+                        "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                        "backward_launches": check_backward_launches(
+                            f"parallel_train {name} rank {rank}", stats)}
+        if name == "dp":
+            dp = {k: {n: layout.local(n, t).cpu() for n, t in getattr(state, k).items()}
+                  for k in STATE_PARTS}
+        else:
+            result["fsdp_equals_dp"] = result["fsdp"]["loss"] == result["dp"]["loss"] and all(
+                torch.equal(t.cpu(), dp[k][n]) for k in STATE_PARTS
+                for n, t in getattr(state, k).items())
+            full = {k: gather_state_dict(getattr(state, k), layout, mesh, keep=rank == 0)
+                    for k in ("params", "exp_avg")}
+        del state
+        torch.cuda.empty_cache()
+    del dp
+    if rank == 0:
+        state = create_train_state(unet)
+        state, m = make_train_step(unet, schedule, cfg)(state, batch, Draws.seeded([1, 1], dev))
+        rel = {}
+        for k in ("params", "exp_avg"):
+            num = den = 0.0
+            for n, t in getattr(state, k).items():
+                want = t.cpu().double()
+                num += float((full[k][n].double() - want).pow(2).sum())
+                den += float(want.pow(2).sum())
+            rel[k] = (num / den) ** 0.5
+        loss = float(m["loss_simple"])
+        result["vs_one_process"] = {"loss": loss, "loss_rel": abs(result["fsdp"]["loss"] / loss - 1),
+                                    "params_rel_l2": rel["params"], "grad_rel_l2": rel["exp_avg"]}
+        del state
+    _rank_done(mesh, out_dir, result)
+
+
+def _nccl_world1(dev, plain):
+    """(c)(i): the train_repeat step through the distributed DP and FSDP
+    paths over NCCL at world size 1; both must equal the plain step (loss
+    and state fingerprint) bit for bit."""
+    from geo4d_tpu_torch.core.timing import StageTimer
+    from geo4d_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+    from geo4d_tpu_torch.parallel.sharding import ShardLayout
+    from geo4d_tpu_torch.core.draws import Draws
+    from geo4d_tpu_torch.training.step import TrainConfig, create_train_state, make_train_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = init_distributed("cuda", 1, rank=0, world_size=1, local_rank=0,
+                                init_method="file://" + os.path.join(tmp, "store"))
+        try:
+            model, batch = flagship_train_setup(dev)
+            layout = ShardLayout.build({n: p.shape for n, p in model.unet.named_parameters()},
+                                       mesh)
+            for name, lay in (("dp", None), ("fsdp", layout)):
+                state = create_train_state(model.unet, lay)
+                step = make_train_step(model.unet, model.schedule, TrainConfig(), mesh, lay)
+                timer = StageTimer(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                state, m = step(state, batch, Draws.seeded([1, 1], dev), timer)
+                run = (float(m["loss_simple"]), state_fingerprint(state))
+                print(f"parallel_train nccl world 1 {name} ({mesh.backend}"
+                      f"{', %d sharded leaves' % len(layout.sharded) if lay else ''}): loss "
+                      f"{run[0]!r}, fingerprint {run[1]}, {'equal' if run == plain else 'UNLIKE'} "
+                      f"the plain step; stage seconds "
+                      f"{json.dumps({k: round(v, 4) for k, v in timer.seconds.items()})}, "
+                      f"collectives {timer.seconds['gather'] + timer.seconds['reduce']:.4f} s; "
+                      f"peak {torch.cuda.max_memory_allocated(dev)} bytes", flush=True)
+                if run != plain:
+                    raise AssertionError(f"parallel_train: the NCCL world-1 {name} step differs "
+                                         f"from the plain step")
+                del state
+                torch.cuda.empty_cache()
+        finally:
+            shutdown_distributed()
+    del model, batch
+    torch.cuda.empty_cache()
+
+
+def _cli_two_ranks(dev):
+    """(c)(iii): cli/train.py under torch.distributed.run, two gloo ranks on
+    cuda:0 at PAR_NUM_RES_BLOCKS, --fsdp, 2 steps on the train phase's
+    shards; rank 0 writes metrics.jsonl and ckpt_final, which loads into a
+    one-process UNet."""
+    import yaml
+
+    from geo4d_tpu_torch.models.checkpoint import load_unet_weights
+    from geo4d_tpu_torch.models.unet3d import UNet3D
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(repo, "configs", "inference_geo4d.yaml")) as f:
+            cfg = yaml.safe_load(f)
+        cfg["model"]["params"]["unet_config"]["params"]["num_res_blocks"] = PAR_NUM_RES_BLOCKS
+        with open(os.path.join(tmp, "reduced.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+        data, run = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+        write_shards(data, 2, TRAIN_T, TRAIN_HW, seed=0)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+               str(PAR_WORLD), "-m", "geo4d_tpu_torch.cli.train", "--data_dir", data,
+               "--out_dir", run, "--steps", "2", "--batch_size", "1", "--config",
+               os.path.join(tmp, "reduced.yaml"), "--fsdp", "--dist_backend", "gloo"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            if line.startswith("[train]"):
+                print(f"parallel_train cli: {line}", flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-6000:], file=sys.stderr)
+            raise AssertionError(f"parallel_train: the 2-rank CLI exited {proc.returncode}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if [r["step"] for r in rows if "loss_simple" in r] != [0, 1]:
+            raise AssertionError(f"parallel_train: metrics.jsonl rows {rows}")
+        with torch.device("meta"):
+            unet = UNet3D(num_res_blocks=PAR_NUM_RES_BLOCKS)
+        unet.to_empty(device=dev)
+        load_unet_weights(unet, os.path.join(run, "ckpt_final"))
+        if not all(bool(torch.isfinite(p).all()) for p in unet.parameters()):
+            raise AssertionError("parallel_train: the 2-rank ckpt_final holds non-finite weights")
+        ckpt_bytes = os.path.getsize(os.path.join(run, "ckpt_final"))
+        del unet
+    torch.cuda.empty_cache()
+    print(f"parallel_train cli: torch.distributed.run, 2 gloo ranks on cuda:0, --fsdp, 2 steps: "
+          f"wall {wall:.3f} s (rank start, model build, steps, checkpoint); losses "
+          f"{[r['loss_simple'] for r in rows if 'loss_simple' in r]}; ckpt_final {ckpt_bytes} "
+          f"bytes loaded into a one-process UNet", flush=True)
+
+
+def parallel_phase(dev, plain_run):
+    """Phase 17: the parallel layer (see the constants above). Returns the
+    sub-phases' wall times."""
+    from geo4d_tpu_torch.parallel.dryrun import dryrun_multiprocess
+
+    walls = {}
+    for platform, backend, where in (("cpu", None, "on the CPU"),
+                                     ("cuda", "gloo", "sharing cuda:0 (bf16, the kernels)")):
+        t0 = time.perf_counter()
+        dryrun_multiprocess(PAR_WORLD, platform, backend)
+        walls[f"parallel_dryrun_{platform}"] = time.perf_counter() - t0
+        print(f"parallel_dryrun: {PAR_WORLD} gloo ranks {where} in "
+              f"{walls[f'parallel_dryrun_{platform}']:.3f} s", flush=True)
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, walls["parallel_infer"] = _spawn(_infer_rank, tmp)
+    for r, res in enumerate(ranks):
+        print(f"parallel_infer rank {r}: reconstruct wall {res['wall_s']:.4f} s, diffusion_s "
+              f"{res['timing']['diffusion_s']:.4f}, alignment_s {res['timing']['alignment_s']:.4f}"
+              f"; peak {res['peak_bytes']} bytes; launches {json.dumps(res['launches'])}",
+              flush=True)
+    cmp = ranks[0]["vs_one_process"]
+    print(f"parallel_infer: gathered predictions against one process at window_batch "
+          f"{PAR_WORLD}: {json.dumps(cmp)}; aligner final loss {ranks[0]['final_loss']!r}; "
+          f"results directory {ranks[0]['export_s']:.2f} s; phase wall "
+          f"{walls['parallel_infer']:.3f} s", flush=True)
+    if any(v["rel_l2"] > PAR_INFER_REL_L2 for v in cmp.values()):
+        raise AssertionError(f"parallel_infer: the ranks' predictions differ from one process "
+                             f"(limit {PAR_INFER_REL_L2})")
+
+    t0 = time.perf_counter()
+    _nccl_world1(dev, plain_run)
+    walls["parallel_train_nccl"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, walls["parallel_train_gloo"] = _spawn(_train_rank, tmp)
+    for r, res in enumerate(ranks):
+        for name in ("dp", "fsdp"):
+            x = res[name]
+            print(f"parallel_train gloo rank {r} {name}: loss {x['loss']!r}; step {x['step_s']:.4f}"
+                  f" s, collectives {x['collective_s']:.4f} s, stages "
+                  f"{json.dumps({k: round(v, 4) for k, v in x['stages'].items()})}; peak "
+                  f"{x['peak_bytes']} bytes; backward launches "
+                  f"{json.dumps(x['backward_launches'])}", flush=True)
+        print(f"parallel_train gloo rank {r}: FSDP state equal to DP bit for bit: "
+              f"{res['fsdp_equals_dp']}", flush=True)
+    one = ranks[0]["vs_one_process"]
+    print(f"parallel_train gloo: UNet of {ranks[0]['parameters']} parameters "
+          f"(num_res_blocks {PAR_NUM_RES_BLOCKS}), {ranks[0]['sharded_leaves']} sharded leaves; "
+          f"against one process at batch {PAR_WORLD}: loss {one['loss']!r} (relative "
+          f"{one['loss_rel']:.3e}, limit {PAR_TRAIN_LOSS_REL}), averaged gradient (AdamW's first "
+          f"moment) relative L2 {one['grad_rel_l2']:.3e} (limit {PAR_TRAIN_GRAD_REL}), updated "
+          f"master weights relative L2 {one['params_rel_l2']:.3e} (limit {PAR_TRAIN_PARAM_REL}); "
+          f"phase wall {walls['parallel_train_gloo']:.3f} s", flush=True)
+    if not all(res["fsdp_equals_dp"] for res in ranks):
+        raise AssertionError("parallel_train: the FSDP step differs from the DP step")
+    if not (one["loss_rel"] <= PAR_TRAIN_LOSS_REL and one["grad_rel_l2"] <= PAR_TRAIN_GRAD_REL
+            and one["params_rel_l2"] <= PAR_TRAIN_PARAM_REL):
+        raise AssertionError("parallel_train: the 2-rank step differs from one process at batch 2")
+
+    t0 = time.perf_counter()
+    _cli_two_ranks(dev)
+    walls["parallel_train_cli"] = time.perf_counter() - t0
+    print(f"parallel: sub-phase walls {json.dumps({k: round(v, 3) for k, v in walls.items()})}",
+          flush=True)
+    return walls
+
+
 def training_phases(dev):
     """Phases 12-16; cuDNN is held to its deterministic algorithms, so that
     a training step repeats bit for bit. Returns the backward kernels' rows
@@ -1708,9 +2117,9 @@ def training_phases(dev):
     vae_bwd = vae_train_phase(dev)
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         results, totals = backward_phase(dev, train_bwd, steps, vae_bwd)
-    train_repeat_phase(dev)
+    plain_run = train_repeat_phase(dev)
     train_reference_phase(dev)
-    return results, totals, launches
+    return results, totals, launches, plain_run
 
 
 def main() -> int:
@@ -1719,6 +2128,8 @@ def main() -> int:
     ap.add_argument("--shapes-only", help="time only the (kernel, shape) list in this file")
     ap.add_argument("--train-only", action="store_true",
                     help="phases 1-2 and the training phases 12-16 only")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="phases 1-2, train_repeat (15) and the parallel phase (17) only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1751,8 +2162,13 @@ def main() -> int:
             totals = shapes_phase(dev, by_shape)
         print(json.dumps({"totals": totals}))
         return 0
+    if args.parallel_only:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        parallel_phase(dev, train_repeat_phase(dev))
+        return 0
     if args.train_only:
-        results, totals, launches = training_phases(dev)
+        results, totals, launches, _ = training_phases(dev)
         print(json.dumps({"backward": {k: dict(results[k], **totals[k], launches=launches[k])
                                        for k in results}}))
         return 0
@@ -1778,7 +2194,8 @@ def main() -> int:
         for name, opts in ATTENTION_OPTIONS.items():
             reference_phase(dev, name, **opts)
     align_reference_phase(dev)
-    bwd_results, bwd_totals, bwd_launches = training_phases(dev)
+    bwd_results, bwd_totals, bwd_launches, plain_run = training_phases(dev)
+    parallel_phase(dev, plain_run)
 
     foreign = sorted(m for m, mod in sys.modules.items()
                      if mod is not None and m.split(".")[0] in FOREIGN_ROOTS)

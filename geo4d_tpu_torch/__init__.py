@@ -5,7 +5,8 @@ Same subpackage layout as the JAX package, channels-last activations:
               stage timer
   data/       CLIP tokenizer, frame and video loading (PNG, JPEG: no
               Pillow), evaluation datasets, their preparation and Sintel's
-              dynamic masks
+              dynamic masks, the training batch sampler, data module and
+              crops
   ops/        kernel gate and loader; GroupNorm, spatial and temporal
               attention wrappers, each with its plain PyTorch version
   csrc/       the hand-written CUDA kernels (built with nvcc at first use)
@@ -19,11 +20,15 @@ Same subpackage layout as the JAX package, channels-last activations:
               trajectory metrics
   alignment/  group aligner, its initialisation, point-cloud cleanup
   pipeline/   WindowPredictor, align_predictions, reconstruct, results export
-  cli/        the inference CLI and its model building
+  training/   diffusion loss, AdamW + EMA step, batch builders, VAE GAN step
+  parallel/   process mesh (torch.distributed), sharded collectives, dry runs
+  cli/        the inference, evaluation and training CLIs and their model
+              building
   tools/      the aligner profile on the card
 
 The port imports nothing of JAX, Flax, Optax, OpenCV or Pillow, and nothing of the
 JAX package `geo4d_tpu`: the few numpy-only pieces it needs from there
-(trajectory metrics, results export, YAML config, tokenizer, frame loading)
+(trajectory metrics, results export, YAML config, tokenizer, frame loading,
+the sampler, data module and crops)
 are its own copies, held equal to the originals by tests/test_torch_*.py.
 """

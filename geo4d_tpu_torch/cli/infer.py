@@ -13,6 +13,10 @@ Usage:
 
 --device cuda (the default) requires a CUDA device and runs the
 hand-written kernels; --device cpu runs their plain versions.
+Under torchrun (`torchrun --standalone --nproc_per_node N -m
+geo4d_tpu_torch.cli.infer ...`) the ranks share the windows, one card a
+rank over NCCL (or the CPU over gloo with --device cpu); rank 0 aligns the
+gathered predictions and writes the results directory.
 A video file is decoded by the repo's FFmpeg decoder (native/, built on
 first use; where FFmpeg's development libraries are missing that is an
 error); a directory of PNG or JPEG frames needs nothing more.
@@ -86,7 +90,12 @@ def main(argv=None):
     from geo4d_tpu_torch.pipeline.export import save_results_dir, save_time_cost
     from geo4d_tpu_torch.pipeline.inference import InferenceConfig, reconstruct
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if "WORLD_SIZE" in os.environ:
+        from geo4d_tpu_torch.parallel.mesh import init_distributed
+
+        mesh = init_distributed(args.device)
+    dev = mesh.device if mesh else resolve_device(args.device)
     seq = os.path.splitext(os.path.basename(args.video_path.rstrip("/")))[0]
     out_dir = os.path.join(args.savedir, seq, seq)
 
@@ -124,7 +133,9 @@ def main(argv=None):
     timer = StageTimer(dev)
     scene, _preds, timing = reconstruct(
         model, frames, text_ctx, fps=fps, inference_config=icfg, aligner_config=acfg,
-        seed=args.seed, verbose=True, uncond_text_ctx=uncond_text_ctx, timer=timer)
+        seed=args.seed, mesh=mesh, verbose=True, uncond_text_ctx=uncond_text_ctx, timer=timer)
+    if scene is None:           # a rank other than 0: rank 0 aligns and writes
+        return
     print(f"[infer] PnP failures {scene.pnp_failures}; stage seconds "
           + " ".join(f"{k}={v:.3f}" for k, v in timer.seconds.items()))
     if args.clean_pointcloud:

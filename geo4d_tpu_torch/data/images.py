@@ -15,6 +15,10 @@ zlib.
                           normalised per output pixel, then 22-bit fixed
                           point rounded half away from zero), a horizontal
                           pass, clipped to uint8, then a vertical pass.
+  bicubic_resize          the same scheme with Pillow's BICUBIC filter (the
+                          cubic convolution kernel with a = -0.5, support 2
+                          x max(scale, 1)), bit for bit Image.BICUBIC.
+Both also take a grayscale (H, W) image (Pillow's mode L).
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 # Pillow's fixed point for 8-bit images: 32 bits less 8 of data and 2 of headroom
 PRECISION_BITS = 32 - 8 - 2
 LANCZOS_SUPPORT = 3.0
+BICUBIC_SUPPORT = 2.0
+BICUBIC_A = -0.5
 
 
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -127,13 +133,14 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(encode_png(img))
 
 
-def _lanczos_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+def _coeffs(in_size: int, out_size: int, support: float, weights) -> Tuple[np.ndarray, np.ndarray]:
     """Resample.c `precompute_coeffs` + `normalize_coeffs_8bpc` for one
-    axis: (tap source indices (out, ksize), int64 coefficients (out, ksize));
-    taps past an output pixel's window carry coefficient 0."""
+    axis and a filter of `support` whose values `weights` gives for an array
+    of positions: (tap source indices (out, ksize), int64 coefficients (out,
+    ksize)); taps past an output pixel's window carry coefficient 0."""
     scale = filterscale = in_size / out_size
     filterscale = max(filterscale, 1.0)
-    support = LANCZOS_SUPPORT * filterscale
+    support = support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # C casts truncate toward zero, as int() does
@@ -142,11 +149,7 @@ def _lanczos_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray
     taps = np.arange(ksize)
     live = taps[None] < xmax[:, None]
     x = (taps[None] + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale)
-    # the truncated sinc sinc(x) sinc(x / 3) on [-3, 3), with libm's sin
-    flat = x.ravel()
-    w = np.fromiter((_sinc(v) * _sinc(v / 3) if -3.0 <= v < 3.0 else 0.0 for v in flat),
-                    np.float64, flat.size).reshape(x.shape)
-    w = np.where(live, w, 0.0)
+    w = np.where(live, weights(x), 0.0)
     ww = np.zeros(out_size)
     for t in taps:                        # summed in the C loop's order
         ww = ww + w[:, t]
@@ -155,6 +158,22 @@ def _lanczos_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray
     k = np.trunc(np.where(w < 0, fixed - 0.5, fixed + 0.5)).astype(np.int64)
     idx = np.minimum(xmin[:, None] + taps[None], in_size - 1)
     return idx, k
+
+
+def _lanczos_weights(x: np.ndarray) -> np.ndarray:
+    """The truncated sinc sinc(x) sinc(x / 3) on [-3, 3), with libm's sin."""
+    flat = x.ravel()
+    return np.fromiter((_sinc(v) * _sinc(v / 3) if -3.0 <= v < 3.0 else 0.0 for v in flat),
+                       np.float64, flat.size).reshape(x.shape)
+
+
+def _bicubic_weights(x: np.ndarray) -> np.ndarray:
+    """Resample.c `bicubic_filter`, in its operation order."""
+    a = BICUBIC_A
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
 def _sinc(x: float) -> float:
@@ -168,23 +187,37 @@ def _clip8(acc: np.ndarray) -> np.ndarray:
     return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def lanczos_resize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Resize uint8 (H, W, 3) to size (W, H) with Pillow's LANCZOS filter,
-    bit for bit."""
+def _resample(img: np.ndarray, size: Tuple[int, int], support: float, weights) -> np.ndarray:
     out_w, out_h = size
     h, w = img.shape[:2]
     x = np.asarray(img, np.uint8)
+    gray = x.ndim == 2
+    if gray:
+        x = x[..., None]
     half = 1 << (PRECISION_BITS - 1)
     if out_w != w:
-        idx, k = _lanczos_coeffs(w, out_w)
+        idx, k = _coeffs(w, out_w, support, weights)
         acc = np.full((h, out_w, x.shape[2]), half, np.int64)
         for t in range(k.shape[1]):
             acc += x[:, idx[:, t]].astype(np.int64) * k[None, :, t, None]
         x = _clip8(acc)
     if out_h != h:
-        idx, k = _lanczos_coeffs(h, out_h)
+        idx, k = _coeffs(h, out_h, support, weights)
         acc = np.full((out_h,) + x.shape[1:], half, np.int64)
         for t in range(k.shape[1]):
             acc += x[idx[:, t]].astype(np.int64) * k[:, t, None, None]
         x = _clip8(acc)
-    return x.copy() if x is img else x
+    x = x[..., 0] if gray else x
+    return x.copy() if np.shares_memory(x, img) else x
+
+
+def lanczos_resize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Resize uint8 (H, W, 3) or (H, W) to size (W, H) with Pillow's LANCZOS
+    filter, bit for bit."""
+    return _resample(img, size, LANCZOS_SUPPORT, _lanczos_weights)
+
+
+def bicubic_resize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Resize uint8 (H, W, 3) or (H, W) to size (W, H) with Pillow's BICUBIC
+    filter, bit for bit."""
+    return _resample(img, size, BICUBIC_SUPPORT, _bicubic_weights)

@@ -187,7 +187,8 @@ class GeoDiffusion(nn.Module):
                       eta: float = 0.0, cfg_scale: float = 1.0, cfg_img: Optional[float] = None,
                       guidance_rescale: float = 0.7, x_T: Optional[torch.Tensor] = None,
                       timer=None) -> torch.Tensor:
-        """Denoise windows -> (B, T, h, w, 16) geometry latents."""
+        """Denoise windows -> (B, T, h, w, 16) geometry latents; `generator`
+        as `ddim_sample`'s."""
         b, t, h, w, _ = c_concat.shape
         tables = DDIMTables.from_schedule(self.schedule, num_steps, timestep_spacing, eta)
         use_cfg = cfg_scale != 1.0

@@ -7,6 +7,18 @@ group alignment (`align_predictions`); `reconstruct` runs both.
 frame and gathers the results into windows; the resampler runs per window
 because its query bank depends on the frame's position in the window. Its
 outputs stay on the device into the aligner.
+
+Across ranks (`mesh=`, from `parallel.mesh.init_distributed`), windows run
+in chunks of max(window_batch, world) rounded up to a multiple of the world
+size; each rank runs its rows of every chunk (`rank_rows`) and the outputs
+are gathered to every rank in window order, as the JAX package shards each
+chunk's windows over its mesh. Every rank draws each chunk's random numbers
+for all of the chunk's rows from the same seeded generator and keeps its
+own (`core.draws.RankDraws`), so n ranks draw what one process draws at
+window_batch = n. What
+precedes the UNet is computed for all rows on every rank: `predict_video`'s
+CLIP tokens and VAE latents of every frame, `predict_windows`' conditioning
+of the whole chunk (the JAX package replicates the video).
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ import torch.nn.functional as F
 
 from geo4d_tpu_torch.alignment.init import init_from_group
 from geo4d_tpu_torch.alignment.optimizer import AlignerConfig, GroupAligner
+from geo4d_tpu_torch.core.draws import Draws, RankDraws
 from geo4d_tpu_torch.core.timing import stage
 from geo4d_tpu_torch.geometry.normalize import (
     denormalize_inverse_depth,
@@ -30,6 +43,7 @@ from geo4d_tpu_torch.geometry.normalize import (
 )
 from geo4d_tpu_torch.geometry.rays import cameras_from_plucker
 from geo4d_tpu_torch.models.diffusion import GeoDiffusion
+from geo4d_tpu_torch.parallel.mesh import Mesh, rank_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,12 +88,14 @@ def _to_unit_range(frames: torch.Tensor) -> torch.Tensor:
 
 
 class WindowPredictor:
-    """Runs the diffusion stage for batches of windows on one device."""
+    """Runs the diffusion stage for batches of windows on one device, or on
+    each rank of a `mesh` its rows of every chunk of windows."""
 
     def __init__(self, model: GeoDiffusion, config: InferenceConfig = InferenceConfig(),
-                 device=None):
+                 device=None, mesh: Optional[Mesh] = None):
         self.model = model
         self.cfg = config
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None else next(model.parameters()).device
 
     @torch.no_grad()
@@ -133,12 +149,37 @@ class WindowPredictor:
 
     def _chunks(self, g_total: int):
         bs = self.cfg.window_batch
+        if self.mesh is not None:
+            world = self.mesh.world_size
+            bs = -(-max(bs, world) // world) * world
         for start in range(0, g_total, bs):
             yield start, min(bs, g_total - start), bs
+
+    def _rows(self, bs: int) -> slice:
+        """The rows of a bs-row chunk that this rank runs."""
+        if self.mesh is None:
+            return slice(0, bs)
+        return rank_rows(bs, self.mesh.world_size, self.mesh.rank)
+
+    def _sampler_draws(self, gen: torch.Generator):
+        """The sampler's noise: a rank draws it for the whole chunk and keeps
+        its rows, so that it consumes `gen` as one process does."""
+        if self.mesh is None:
+            return gen
+        return RankDraws(Draws(gen), self.mesh.world_size, self.mesh.rank)
+
+    def _gather(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self.mesh is None:
+            return out
+        return {k: self.mesh.gather_rows(v) for k, v in out.items()}
 
     @staticmethod
     def _pad(x: torch.Tensor, pad: int) -> torch.Tensor:
         return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
+
+    @staticmethod
+    def _take(uncond, rows: slice):
+        return tuple(None if u is None else u[rows] for u in uncond)
 
     @torch.no_grad()
     def predict_windows(self, frames_windows: np.ndarray, text_ctx: np.ndarray, fps: int,
@@ -148,6 +189,7 @@ class WindowPredictor:
         `x_T` (G, T, h, w, 16) fixes each window's initial noise."""
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
+        sampler_draws = self._sampler_draws(gen)
         text = torch.as_tensor(text_ctx, dtype=torch.float32, device=dev)
         uncond_text = text if uncond_text_ctx is None else torch.as_tensor(
             uncond_text_ctx, dtype=torch.float32, device=dev)
@@ -156,6 +198,7 @@ class WindowPredictor:
             frames = self._pad(_to_unit_range(torch.as_tensor(
                 frames_windows[start:start + n], device=dev)), bs - n)
             g, t = frames.shape[:2]
+            rows = self._rows(bs)
             with stage(timer, "conditioning"):
                 img_ctx = self.model.embed_frames(frames)
                 ctx = torch.cat([text.expand(g, -1, -1), img_ctx], dim=1)
@@ -165,10 +208,11 @@ class WindowPredictor:
             xt = None
             if x_T is not None:
                 xt = self._pad(torch.as_tensor(x_T[start:start + n], dtype=torch.float32,
-                                               device=dev), bs - n)
-            fs = torch.full((g,), fps, dtype=torch.int32, device=dev)
-            out = self._tail(ctx, uncond, z_video, fs, gen, xt, timer)
-            outs.append({k: v[:n].cpu().numpy() for k, v in out.items()})
+                                               device=dev), bs - n)[rows]
+            fs = torch.full((rows.stop - rows.start,), fps, dtype=torch.int32, device=dev)
+            out = self._tail(ctx[rows], self._take(uncond, rows), z_video[rows], fs,
+                             sampler_draws, xt, timer)
+            outs.append({k: v[:n].cpu().numpy() for k, v in self._gather(out).items()})
         return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
     @torch.no_grad()
@@ -180,6 +224,7 @@ class WindowPredictor:
         `return_device` the outputs stay torch tensors on the device."""
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
+        sampler_draws = self._sampler_draws(gen)
         text = torch.as_tensor(text_ctx, dtype=torch.float32, device=dev)
         uncond_text = text if uncond_text_ctx is None else torch.as_tensor(
             uncond_text_ctx, dtype=torch.float32, device=dev)
@@ -192,15 +237,16 @@ class WindowPredictor:
         gidx_all = torch.as_tensor(np.asarray(groups), dtype=torch.long, device=dev)
         outs: List[Dict[str, torch.Tensor]] = []
         for start, n, bs in self._chunks(gidx_all.shape[0]):
-            gidx = self._pad(gidx_all[start:start + n], bs - n)
+            rows = self._rows(bs)
+            gidx = self._pad(gidx_all[start:start + n], bs - n)[rows]
             g, t = gidx.shape
             with stage(timer, "resampler"):
                 img_ctx = self.model.resample_tokens(tokens[gidx])      # (G, T*16, ctx)
                 ctx = torch.cat([text.expand(g, -1, -1), img_ctx], dim=1)
                 uncond = self._uncond(text, uncond_text, img_ctx, g, t, video.shape[1:])
             fs = torch.full((g,), fps, dtype=torch.int32, device=dev)
-            out = self._tail(ctx, uncond, z_frames[gidx], fs, gen, None, timer)
-            outs.append({k: v[:n] for k, v in out.items()})
+            out = self._tail(ctx, uncond, z_frames[gidx], fs, sampler_draws, None, timer)
+            outs.append({k: v[:n] for k, v in self._gather(out).items()})
         merged = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
         if return_device:
             return merged
@@ -232,19 +278,23 @@ def align_predictions(groups: np.ndarray, preds: Dict[str, object], imshape,
 def reconstruct(model: GeoDiffusion, frames: np.ndarray, text_ctx: np.ndarray, fps: int = 24,
                 inference_config: InferenceConfig = InferenceConfig(),
                 aligner_config: AlignerConfig = AlignerConfig(), seed: int = 123,
-                intrinsics: Optional[np.ndarray] = None, verbose: bool = False,
-                uncond_text_ctx: Optional[np.ndarray] = None, timer=None, device=None):
+                intrinsics: Optional[np.ndarray] = None, mesh: Optional[Mesh] = None,
+                verbose: bool = False, uncond_text_ctx: Optional[np.ndarray] = None,
+                timer=None, device=None):
     """Full pipeline: windows -> diffusion -> group alignment, on the
     model's device. frames (T, H, W, 3): uint8 0..255 or float [-1, 1];
     text_ctx (1, 77, ctx) the precomputed text context.
 
-    The JAX package's signature without `params` and `mesh`: the module
-    carries its weights and runs on one device. Returns (scene aligner, raw
-    window predictions as device tensors, timing dict with diffusion_s,
-    alignment_s, frames and sec_per_frame)."""
+    The JAX package's signature without `params`: the module carries its
+    weights. Returns (scene aligner, raw window predictions as device
+    tensors, timing dict with diffusion_s, alignment_s, frames and
+    sec_per_frame). With a `mesh`, the ranks share the windows
+    (WindowPredictor) and every rank gets all the predictions; rank 0 alone
+    aligns them (the JAX package's single controller aligns once) and the
+    other ranks return (None, predictions, timing) with alignment_s 0."""
     t_total, h, w = frames.shape[:3]
     groups = sliding_windows(t_total, inference_config.window, inference_config.stride)
-    predictor = WindowPredictor(model, inference_config, device=device)
+    predictor = WindowPredictor(model, inference_config, device=device, mesh=mesh)
     dev = predictor.device
 
     def sync():
@@ -258,11 +308,13 @@ def reconstruct(model: GeoDiffusion, frames: np.ndarray, text_ctx: np.ndarray, f
                                     timer=timer)
     sync()
     t_diffusion = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    aligner = align_predictions(groups, preds, (h, w), aligner_config, intrinsics,
-                                verbose=verbose, timer=timer)
-    sync()
-    t_align = time.perf_counter() - t0
+    aligner, t_align = None, 0.0
+    if mesh is None or mesh.rank == 0:
+        t0 = time.perf_counter()
+        aligner = align_predictions(groups, preds, (h, w), aligner_config, intrinsics,
+                                    verbose=verbose, timer=timer)
+        sync()
+        t_align = time.perf_counter() - t0
     timing = {
         "diffusion_s": t_diffusion,
         "alignment_s": t_align,

@@ -55,6 +55,12 @@ def _rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
 
 
+def _normal(generator, shape, device) -> torch.Tensor:
+    if generator is None or isinstance(generator, torch.Generator):
+        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return generator.normal(shape)
+
+
 def ddim_sample(model_fn: Callable[[torch.Tensor, int, int], torch.Tensor], shape: tuple,
                 tables: DDIMTables, *, device: torch.device,
                 generator: Optional[torch.Generator] = None, parameterization: str = "v",
@@ -66,8 +72,10 @@ def ddim_sample(model_fn: Callable[[torch.Tensor, int, int], torch.Tensor], shap
     model_fn(x, t, branches) gets x stacked `branches` times along the batch
     ([cond | uncond] or [cond | uncond | uncond_img]) and returns the same
     stacking. Noise (x_T when not given, and eta > 0 step noise) is drawn
-    from `generator`. `timer(name)`, if given, is a context manager wrapped
-    around each step.
+    from `generator`: a torch.Generator, or draws (core/draws.py) whose
+    `normal(shape)` gives it, such as a rank's `RankDraws`, which draws for
+    the whole batch and keeps the rank's rows. `timer(name)`, if given, is a
+    context manager wrapped around each step.
     """
     use_cfg = cfg_scale != 1.0
     multicond = use_cfg and cfg_img is not None and cfg_img != 1.0
@@ -76,7 +84,7 @@ def ddim_sample(model_fn: Callable[[torch.Tensor, int, int], torch.Tensor], shap
     if x_T is not None:
         x = x_T.to(device=device, dtype=torch.float32)
     else:
-        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        x = _normal(generator, shape, device)
 
     for step, i in enumerate(reversed(range(len(tables.timesteps)))):
         with timer(f"ddim_step_{step}") if timer else contextlib.nullcontext():
@@ -112,9 +120,7 @@ def ddim_sample(model_fn: Callable[[torch.Tensor, int, int], torch.Tensor], shap
             dir_coef = float(np.sqrt(np.maximum(f32(1.0) - a_prev - sigma_t * sigma_t, f32(0.0))))
             x = float(np.sqrt(a_prev)) * pred_x0 + dir_coef * e_t
             if sigma_t != 0.0:
-                noise = torch.randn(x.shape, generator=generator, device=device,
-                                    dtype=torch.float32)
-                x = x + float(sigma_t) * noise
+                x = x + float(sigma_t) * _normal(generator, x.shape, device)
     return x
 
 

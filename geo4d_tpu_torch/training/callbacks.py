@@ -16,15 +16,20 @@ import torch
 
 class MetricLogger:
     """Append-only JSONL metrics (`<log_dir>/metrics.jsonl`) + optional
-    console echo every `echo_every` steps."""
+    console echo every `echo_every` steps. Across ranks only rank 0 writes
+    (the metrics are the global batch's on every rank)."""
 
-    def __init__(self, log_dir: str, echo_every: int = 50):
-        os.makedirs(log_dir, exist_ok=True)
+    def __init__(self, log_dir: str, echo_every: int = 50, rank: int = 0):
+        self.rank = rank
+        if rank == 0:
+            os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
         self.echo_every = echo_every
         self._t0 = time.time()
 
     def log(self, step: int, metrics: Dict[str, Any]):
+        if self.rank != 0:
+            return
         row = {"step": int(step), "t": round(time.time() - self._t0, 3)}
         for k, v in metrics.items():
             row[k] = float(v) if hasattr(v, "__float__") else v
@@ -48,7 +53,8 @@ def device_memory_stats() -> Dict[str, float]:
 
 
 class EpochTimer:
-    """Epoch wall time + throughput (CUDACallback parity)."""
+    """Epoch wall time + throughput (CUDACallback parity); `step` takes the
+    samples of a step (the global batch across ranks)."""
 
     def __init__(self):
         self._start: Optional[float] = None

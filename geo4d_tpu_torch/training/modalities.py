@@ -11,7 +11,7 @@ IMAGE (zeroed frames through CLIP). Single-channel inverse depth is
 repeated to 3 channels before the encode.
 
 The frozen towers (VAE encoder, CLIP image tower, resampler) run under
-`torch.no_grad()`. Draws (a `training.step.Draws` or `GivenDraws`), in the
+`torch.no_grad()`. Draws (a `core.draws.Draws` or `GivenDraws`), in the
 JAX builders' key order: one posterior noise per encode, then the dropout
 uniforms.
 """

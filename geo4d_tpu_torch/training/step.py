@@ -16,19 +16,32 @@ of parameters at a time. The port updates the state in place where the JAX
 step returns a new one.
 
 Random draws come from a `Draws` (a torch.Generator on the device) or, in
-tests, a `GivenDraws` that hands out arrays drawn elsewhere.
+tests, a `GivenDraws` that hands out arrays drawn elsewhere (core/draws.py).
+
+Across ranks (`make_train_step(..., mesh=)`), each rank holds batch rows
+[r b, (r + 1) b) of a global batch of world x b: it draws the global batch's
+random numbers and keeps its rows (`RankDraws`), averages the gradients over
+the ranks (the JAX step's psum over the sharded batch) and applies the same
+update. With a `ShardLayout` (`--fsdp`) a sharded parameter's master weight,
+moments and EMA are held as the rank's slice: the slices are gathered into
+the module before the forward, and the gradients reduce-scattered to slices
+after the backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List
 
 import numpy as np
 import torch
 
+from geo4d_tpu_torch.core.draws import RankDraws
 from geo4d_tpu_torch.core.schedules import DiffusionSchedule
 from geo4d_tpu_torch.core.timing import stage
+from geo4d_tpu_torch.parallel.mesh import Mesh
+from geo4d_tpu_torch.parallel.sharding import (ShardLayout, all_gather_full, all_reduce_mean,
+                                               reduce_scatter_mean)
 
 
 def geometry_condition_patterns(temporal_length: int) -> np.ndarray:
@@ -62,59 +75,11 @@ class TrainConfig:
     remat: bool = False              # recompute each UNet block's activations in the backward
 
 
-class Draws:
-    """A step's random numbers, drawn in the order the step asks for them
-    from one torch.Generator on `device`."""
-
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
-        self.device = generator.device
-
-    @classmethod
-    def seeded(cls, words: Sequence[int], device) -> "Draws":
-        """A generator seeded from integer words (e.g. seed, step, stream):
-        the same words give the same draws on the same device."""
-        seed = int(np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0] >> 1)
-        return cls(torch.Generator(device=device).manual_seed(seed))
-
-    def randint(self, high: int, shape) -> torch.Tensor:
-        return torch.randint(0, high, tuple(shape), generator=self.generator, device=self.device)
-
-    def normal(self, shape) -> torch.Tensor:
-        return torch.randn(tuple(shape), generator=self.generator, device=self.device)
-
-    def uniform(self, shape) -> torch.Tensor:
-        return torch.rand(tuple(shape), generator=self.generator, device=self.device)
-
-
-class GivenDraws:
-    """Draws handed in as arrays, returned one per call in order (the tests
-    pass the JAX package's draws); each must have the shape asked for."""
-
-    def __init__(self, arrays, device="cpu"):
-        self.arrays = list(arrays)
-        self.device = torch.device(device)
-
-    def _next(self, shape) -> torch.Tensor:
-        a = torch.as_tensor(np.asarray(self.arrays.pop(0)), device=self.device)
-        if tuple(a.shape) != tuple(shape):
-            raise ValueError(f"given draw of shape {tuple(a.shape)}, asked for {tuple(shape)}")
-        return a
-
-    def randint(self, high: int, shape) -> torch.Tensor:
-        return self._next(shape).long()
-
-    def normal(self, shape) -> torch.Tensor:
-        return self._next(shape).float()
-
-    def uniform(self, shape) -> torch.Tensor:
-        return self._next(shape).float()
-
-
 @dataclasses.dataclass
 class TrainState:
     """float32 master weights, AdamW moments and EMA, keyed by the UNet's
-    parameter names, and the number of steps taken."""
+    parameter names, and the number of steps taken. Under a ShardLayout a
+    sharded parameter's four tensors are this rank's slices."""
 
     params: Dict[str, torch.Tensor]
     exp_avg: Dict[str, torch.Tensor]
@@ -126,10 +91,14 @@ class TrainState:
         return dataclasses.asdict(self)
 
 
-def create_train_state(unet: torch.nn.Module) -> TrainState:
+def create_train_state(unet: torch.nn.Module, layout: ShardLayout = None) -> TrainState:
     """The state of a run starting from `unet`'s weights (every parameter
-    trains, as the JAX launcher trains all of params['unet'])."""
-    params = {n: p.detach().float().clone() for n, p in unet.named_parameters()}
+    trains, as the JAX launcher trains all of params['unet']); with a
+    `layout`, this rank's slices of the sharded parameters."""
+    params = {}
+    for n, p in unet.named_parameters():
+        full = p.detach().float().clone()
+        params[n] = full if layout is None else layout.local(n, full)
     return TrainState(
         params=params,
         exp_avg={n: torch.zeros_like(p) for n, p in params.items()},
@@ -242,25 +211,76 @@ def load_params_(module: torch.nn.Module, params: Dict[str, torch.Tensor]) -> No
                              [params[n] for n in names])
 
 
-def make_train_step(unet: torch.nn.Module, schedule: DiffusionSchedule, cfg: TrainConfig):
+def _mesh_parts(names: List[str], mesh: Mesh, layout: ShardLayout):
+    """(replicated indices, sharded indices, sharded dims) of `names`."""
+    layout = layout or ShardLayout.replicated(names, mesh)
+    if (layout.world, layout.rank) != (mesh.world_size, mesh.rank):
+        raise ValueError(f"layout for rank {layout.rank} of {layout.world}, mesh rank "
+                         f"{mesh.rank} of {mesh.world_size}")
+    rep = [i for i, n in enumerate(names) if layout.dims[n] is None]
+    shd = [i for i, n in enumerate(names) if layout.dims[n] is not None]
+    return rep, shd, [layout.dims[names[i]] for i in shd]
+
+
+def make_train_step(unet: torch.nn.Module, schedule: DiffusionSchedule, cfg: TrainConfig,
+                    mesh: Mesh = None, layout: ShardLayout = None):
     """Returns step(state, batch, draws, timer=None) -> (state, metrics): the
     loss and its gradient with respect to the UNet's weights at the state's
     master weights (stage "forward_backward" of an optional StageTimer),
     then AdamW (optax.adamw(lr, weight_decay): b1 0.9, b2 0.999, eps 1e-8,
     decay on every parameter) and the EMA (stage "optimizer"). `state` is
-    updated in place and returned."""
+    updated in place and returned.
+
+    With a `mesh`, `batch` holds this rank's rows of the global batch and
+    `draws` gives the global batch's draws (the step keeps its rows). The
+    gradients are averaged over the ranks in float32 buckets (stage
+    "reduce") and the metrics are the global batch's. With a `layout`
+    (state from `create_train_state(unet, layout)`), the sharded master
+    weights are gathered into the module before the forward (stage
+    "gather") and their gradients reduce-scattered to this rank's slices."""
     unet.remat = cfg.remat
     names = [n for n, _ in unet.named_parameters()]
     weights = [p for _, p in unet.named_parameters()]
+    if mesh is not None:
+        rep, shd, dims = _mesh_parts(names, mesh, layout)
+
+    def gather_params_(state: TrainState):
+        with torch.no_grad():
+            if rep:
+                torch._foreach_copy_([weights[i] for i in rep],
+                                     [state.params[names[i]] for i in rep])
+            for j, full in all_gather_full([state.params[names[i]] for i in shd], dims, mesh,
+                                           [weights[i].dtype for i in shd]):
+                weights[shd[j]].copy_(full)
+
+    def reduce_grads(grads):
+        out = [None] * len(grads)
+        for i, g in zip(rep, all_reduce_mean([grads[i] for i in rep], mesh)):
+            out[i] = g
+        for i, g in zip(shd, reduce_scatter_mean([grads[i] for i in shd], dims, mesh)):
+            out[i] = g
+        return out
 
     def step(state: TrainState, batch, draws, timer=None):
+        if mesh is not None:
+            draws = RankDraws(draws, mesh.world_size, mesh.rank)
+            with stage(timer, "gather"):
+                gather_params_(state)
         with stage(timer, "forward_backward"):
-            load_params_(unet, state.params)
+            if mesh is None:
+                load_params_(unet, state.params)
             loss, metrics = diffusion_loss(unet, schedule, batch, draws, cfg)
             grads = torch.autograd.grad(loss, weights, allow_unused=True)
+        # an unused parameter's gradient is zero; weight decay still applies
+        grads = [torch.zeros_like(w) if g is None else g for g, w in zip(grads, weights)]
+        if mesh is not None:
+            with stage(timer, "reduce"):
+                grads = reduce_grads(grads)
+                keys = sorted(metrics)
+                means = torch.stack([metrics[k].float() for k in keys])
+                mesh.all_reduce_sum_(means).div_(mesh.world_size)
+                metrics = dict(zip(keys, means.unbind()))
         with stage(timer, "optimizer"):
-            # an unused parameter's gradient is zero; weight decay still applies
-            grads = [torch.zeros_like(w) if g is None else g for g, w in zip(grads, weights)]
             p = [state.params[n] for n in names]
             adam_update_(p, grads, [state.exp_avg[n] for n in names],
                          [state.exp_avg_sq[n] for n in names], state.step + 1,

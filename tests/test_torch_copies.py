@@ -2,8 +2,10 @@
 originals, on the same inputs: trajectory metrics (exact), the YAML config
 (the same trees and the same errors), the CLIP tokenizer (the same ids
 with a merge table; a fallback that repeats across processes), frame
-loading (the same uint8 frames) and the epoch-seeded batch sampler (the
-same plans). The results exporter is held to the
+loading (the same uint8 frames), the epoch-seeded batch sampler (the
+same plans), the loader's collation and worker split, and the intrinsics
+and crop geometry of data/cropping.py (its resizes, which the original does
+through Pillow and OpenCV, are held in tests/test_torch_data_loader.py). The results exporter is held to the
 original in tests/test_torch_reconstruct.py."""
 
 import os
@@ -15,11 +17,15 @@ import numpy as np
 import pytest
 
 from geo4d_tpu.core import config as jax_config
+from geo4d_tpu.data import cropping as jax_cropping
+from geo4d_tpu.data import loader as jax_loader
 from geo4d_tpu.data import sampler as jax_sampler
 from geo4d_tpu.data import tokenizer as jax_tokenizer
 from geo4d_tpu.data import video as jax_video
 from geo4d_tpu.evals import trajectory as jax_traj
 from geo4d_tpu_torch.core import config as port_config
+from geo4d_tpu_torch.data import cropping as port_cropping
+from geo4d_tpu_torch.data import loader as port_loader
 from geo4d_tpu_torch.data import sampler as port_sampler
 from geo4d_tpu_torch.data import tokenizer as port_tokenizer
 from geo4d_tpu_torch.data import video as port_video
@@ -167,3 +173,69 @@ def test_sampler_matches_jax(n, batch, pool, world):
         ours.set_epoch(5)
         theirs.set_epoch(5)
         assert len(ours) == len(theirs) and list(ours) == list(theirs)
+
+
+def _same(got, want):
+    assert type(got) is type(want)
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _same(got[k], want[k])
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _same(g, w)
+    elif isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert got == want
+
+
+def test_collate_and_worker_split_match_jax():
+    samples = [{"video": np.full((2, 3), i, np.float32), "fps": 24 - i, "scale": i / 3,
+                "name": f"clip{i}", "pair": (np.arange(i, i + 2), i)} for i in range(4)]
+    _same(port_loader.default_collate(samples), jax_loader.default_collate(samples))
+    _same(port_loader.default_collate([(1, 2.0), (3, 4.0)]),
+          jax_loader.default_collate([(1, 2.0), (3, 4.0)]))
+    for n in (1, 10, 11):
+        ds = list(range(n))
+        for workers in (1, 3, 4):
+            for w in range(workers):
+                assert port_loader.shard_iterable(ds, w, workers) == \
+                    jax_loader.shard_iterable(ds, w, workers)
+
+
+K_CROP = np.array([[120.0, 0.0, 61.3], [0.0, 118.0, 40.7], [0.0, 0.0, 1.0]])
+
+
+@pytest.mark.parametrize("case", ["colmap", "camera_matrix_of_crop", "bbox", "crop",
+                                  "center_crop"])
+def test_crop_geometry_matches_jax(case):
+    rng = np.random.default_rng(2)
+    img = rng.integers(0, 256, (45, 61, 3), dtype=np.uint8)
+    depth = rng.uniform(0.5, 20.0, (45, 61)).astype(np.float32)
+    if case == "colmap":
+        for fn in ("opencv_to_colmap_intrinsics", "colmap_to_opencv_intrinsics"):
+            np.testing.assert_array_equal(getattr(port_cropping, fn)(K_CROP),
+                                          getattr(jax_cropping, fn)(K_CROP))
+    elif case == "camera_matrix_of_crop":
+        for kw in ({}, {"scaling": 2.7, "offset_factor": 0.3}, {"scaling": 3.0, "offset": (4, 9)}):
+            np.testing.assert_array_equal(
+                port_cropping.camera_matrix_of_crop(K_CROP, (61, 45), (60, 40), **kw),
+                jax_cropping.camera_matrix_of_crop(K_CROP, (61, 45), (60, 40), **kw))
+    elif case == "bbox":
+        for K_out in (K_CROP * 0.9, K_CROP + 3.49):
+            assert port_cropping.bbox_from_intrinsics_in_out(K_CROP, K_out, (40, 30)) == \
+                jax_cropping.bbox_from_intrinsics_in_out(K_CROP, K_out, (40, 30))
+    else:
+        args = (0.7,) if case == "center_crop" else ((3, 5, 40, 30),)
+        fn = "center_crop_image_depthmap" if case == "center_crop" else "crop_image_depthmap"
+        for d in (depth, None):
+            got = getattr(port_cropping, fn)(img, d, K_CROP, *args)
+            want = getattr(jax_cropping, fn)(img, d, K_CROP, *args)
+            for g, w in zip(got, want):
+                if w is None:
+                    assert g is None
+                else:
+                    np.testing.assert_array_equal(g, w)

@@ -4,10 +4,11 @@ cannot be imported runs the runtime path, `reconstruct` on the tiny preset
 from frames to an aligned scene, then the inference CLI from a directory of
 PNG frames to a results directory, loads a directory of JPEG frames (the
 decoder of data/jpeg.py), runs the evaluation CLI on a synthetic Sintel
-sequence and two steps of the training CLI, and checks what is loaded; it
-then imports every module of the port (among them data/jpeg.py,
-data/preprocess.py, geometry/warp.py and the training modules) and checks
-again."""
+sequence and two steps of the training CLI, crops and resizes a frame and
+its depth map (data/cropping.py) and reads a rank's batches of the
+DataModule (data/loader.py), and checks what is loaded; it then imports
+every module of the port (among them data/jpeg.py, data/preprocess.py,
+geometry/warp.py, the training modules and parallel/) and checks again."""
 
 import os
 import subprocess
@@ -90,6 +91,15 @@ with tempfile.TemporaryDirectory() as tmp:
                       os.path.join(tmp, "run"), "--tiny", "--device", "cpu", "--height", "32",
                       "--width", "32", "--video_length", "4", "--steps", "2"])
     assert len(run["losses"]) == 2 and os.path.exists(os.path.join(tmp, "run", "ckpt_final"))
+# cropping and the rank-sharded loader (Pillow is not importable here)
+from geo4d_tpu_torch.data import cropping, loader
+K = np.array([[30.0, 0, 16], [0, 30.0, 16], [0, 0, 1]])
+for out in ((16, 16), (48, 40)):
+    img, depth, _ = cropping.crop_resize_to(frames[0], np.ones((32, 32), np.float32), K, out)
+    assert img.shape == (out[1], out[0], 3) and depth.shape == (out[1], out[0])
+batches = list(loader.DataModule(2, train=[{"x": np.zeros(3)}] * 5, multi_resolution=True,
+                                 world_size=2, rank=1).loader("train"))
+assert len(batches) == 1 and batches[0]["x"].shape == (2, 3)
 assert not foreign(), foreign()
 for mod in pkgutil.walk_packages(geo4d_tpu_torch.__path__, "geo4d_tpu_torch."):
     importlib.import_module(mod.name)

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from geo4d_tpu.models.presets import init_params, tiny as jax_tiny
 from geo4d_tpu.training import modalities as jax_modalities
 from geo4d_tpu.training import step as jax_step
+from geo4d_tpu_torch.core.draws import Draws, GivenDraws
 from geo4d_tpu_torch.models.presets import tiny
 from geo4d_tpu_torch.training import modalities, step
 from _torch_parity import (assert_close, load_from_jax, randomize, rel_err,
@@ -79,7 +80,7 @@ def _port_loss_and_grads(pm, batch, draws, cfg):
     names = [n for n, _ in pm.unet.named_parameters()]
     weights = [p for _, p in pm.unet.named_parameters()]
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    loss, metrics = step.diffusion_loss(pm.unet, pm.schedule, tb, step.GivenDraws(draws), cfg)
+    loss, metrics = step.diffusion_loss(pm.unet, pm.schedule, tb, GivenDraws(draws), cfg)
     grads = torch.autograd.grad(loss, weights, allow_unused=True)
     return float(loss.detach()), metrics, {n: (torch.zeros_like(p) if g is None else g)
                                   for n, g, p in zip(names, grads, weights)}
@@ -183,7 +184,7 @@ def test_train_step_updates_state_in_place(models):
     before = {n: t.clone() for n, t in state.params.items()}
     fn = step.make_train_step(pm.unet, pm.schedule, cfg)
     tb = {k: torch.from_numpy(v) for k, v in _latent_batch(2).items()}
-    state, metrics = fn(state, tb, step.Draws.seeded([0, 0], "cpu"))
+    state, metrics = fn(state, tb, Draws.seeded([0, 0], "cpu"))
     assert state.step == 1 and np.isfinite(float(metrics["loss_simple"]))
     moved = [n for n in before if not torch.equal(before[n], state.params[n])]
     assert len(moved) == len(before)                  # AdamW's decay moves every weight
@@ -262,7 +263,7 @@ def test_builders_match_jax(models, modality):
         modality, jm, p, b, k, jnp.asarray(prompt), jnp.asarray(null), 0.3, True, **extra))(
         params, {k: jnp.asarray(v) for k, v in raw.items()}, key)
     got = modalities.build_batch(modality, pm, {k: torch.from_numpy(v) for k, v in raw.items()},
-                                 step.GivenDraws(_builder_draws(modality, key)), to_torch(prompt),
+                                 GivenDraws(_builder_draws(modality, key)), to_torch(prompt),
                                  to_torch(null), 0.3, True, **extra)
     assert got.keys() == want.keys()
     for k in want:
@@ -309,7 +310,7 @@ def test_train_state_checkpoint_round_trip(models, tmp_path):
     state = step.create_train_state(pm.unet)
     fn = step.make_train_step(pm.unet, pm.schedule, cfg)
     tb = {k: torch.from_numpy(v) for k, v in _latent_batch(3).items()}
-    state, _ = fn(state, tb, step.Draws.seeded([1], "cpu"))
+    state, _ = fn(state, tb, Draws.seeded([1], "cpu"))
     save_checkpoint(str(tmp_path / "state"), state.state_dict())
     save_checkpoint(str(tmp_path / "ema"), {"unet": state.ema})
     back = restore_train_state(str(tmp_path / "state"))

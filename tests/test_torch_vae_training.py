@@ -24,7 +24,7 @@ from geo4d_tpu.models.autoencoder import VAEConfig as JaxVAEConfig
 from geo4d_tpu.training import vae as jax_vae
 from geo4d_tpu_torch.models.autoencoder import AutoencoderKL, VAEConfig
 from geo4d_tpu_torch.training import vae
-from geo4d_tpu_torch.training.step import Draws, GivenDraws
+from geo4d_tpu_torch.core.draws import Draws, GivenDraws
 from _torch_parity import randomize, rel_err, state_dict_from_jax, to_torch
 
 torch.set_num_threads(1)

@@ -125,6 +125,20 @@ the final `ok` line):
    one-process UNet. Prints each sub-phase's wall, each rank's peak memory
    and the seconds of collectives a step.
 
+18. longseq (run right after phase 9, with the slice's model): the
+   long-sequence run of geo4d_tpu_torch.tools.longseq at full size, 110
+   seeded frames at KITTI's 640x192 in 25 windows of 16 (stride 4), five
+   windows a UNet call, 500 aligner iterations on synthetic self-consistent
+   geometry, the diffusion and the aligner each run twice (warm, then
+   timed) and once more under a StageTimer for the stage split; the timed
+   run's pts3d, conf and inv_depth must be finite and of
+   shape (25, 16, 192, 640, .), K1-K3 must launch and no plain version run
+   on a CUDA tensor; every (kernel, shape) it launched that phases 5 and 9
+   do not check is checked against its plain version and a second launch;
+   prints the record (times, seconds per frame, the peak memory of the
+   diffusion and of the aligner, stage seconds) on one line prefixed
+   `longseq`.
+
 The second-to-last line is a JSON object with one entry per kernel (the
 backward kernels from phases 12 and 14); the last line is
 {"ok": true, "device": {...}}.
@@ -133,6 +147,7 @@ backward kernels from phases 12 and 14); the last line is
     python3 chip_smoke.py --shapes-only FILE    # phases 1-2 and 5 only
     python3 chip_smoke.py --train-only          # phases 1-2 and 12-16 only
     python3 chip_smoke.py --parallel-only       # phases 1-2, 15 and 17 only
+    python3 chip_smoke.py --longseq-only        # phases 1-2 and 18 only
 
 `--shapes-only` times the saved (kernel, shape, launches) list through the
 `geo4d_tpu_torch` beside this script; a copy of the script in an unpacked
@@ -859,9 +874,11 @@ def evaluate_phase(dev, model, text_ctx, uncond_text_ctx, scene):
 def resolutions_phase(dev, model, text_ctx):
     """One window of predict_windows at Bonn's and KITTI's resolutions, every
     (kernel, shape) it launched checked against its plain version; then
-    every decode_modality layout on random latents at 576x256."""
+    every decode_modality layout on random latents at 576x256. Returns the
+    (kernel, shape) pairs checked."""
     from geo4d_tpu_torch.pipeline.inference import InferenceConfig, WindowPredictor
 
+    checked = set()
     stats = kernel_stats()
     predictor = WindowPredictor(model, InferenceConfig(ddim_steps=1), device=dev)
     g = torch.Generator(device=dev).manual_seed(2)
@@ -884,6 +901,7 @@ def resolutions_phase(dev, model, text_ctx):
             for kernel, counts in by_shape.items():
                 for key, n in sorted(counts.items(), key=lambda kv: -kv[1]):
                     max_abs, max_rel = check_kernel(kernel, key, g, dev)[4:]
+                    checked.add((kernel, key))
                     print(f"resolutions {name} {kernel:18s} {label(kernel, key):40s} "
                           f"launches={n} max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
                           f"repeat_equal=True", flush=True)
@@ -907,6 +925,72 @@ def resolutions_phase(dev, model, text_ctx):
               + ", ".join(f"{k} {tuple(v.shape)}" for k, v in dec.items())
               + f"; group_norm launches {stats['group_norm'].launches}", flush=True)
         del dec
+    return checked
+
+
+def longseq_phase(dev, model, checked=frozenset()):
+    """The long-sequence run (geo4d_tpu_torch.tools.longseq.run_longseq) at
+    full size: 110 frames at KITTI's 640x192 in 25 windows, five a UNet
+    call, 500 aligner iterations, diffusion and aligner each warm, timed,
+    then once more under a StageTimer. The timed run's predictions must be finite and of the windows'
+    shape, K1-K3 must launch and no plain version run on a CUDA tensor;
+    then every (kernel, shape) the run launched that is not in `checked`
+    is checked against its plain version and a second launch (not timed).
+    Prints the record on one line, prefixed `longseq`; when `checked` is
+    not empty, earlier phases ran the aligner and the record's note says
+    that its align_cold_* figures are not cold."""
+    from geo4d_tpu_torch.nn.basics import num_groups_for
+    from geo4d_tpu_torch.ops import group_norm as gn
+    from geo4d_tpu_torch.pipeline.inference import sliding_windows
+    from geo4d_tpu_torch.tools.longseq import KITTI_HW, run_longseq
+
+    frames, (h, w) = 110, KITTI_HW
+    n_win = sliding_windows(frames, 16, 4).shape[0]             # 25
+
+    def check(preds):
+        for k, tail in (("pts3d", (3,)), ("conf", ()), ("inv_depth", ())):
+            v = preds[k]
+            if tuple(v.shape) != (n_win, 16, h, w, *tail) or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"longseq: {k} {tuple(v.shape)} or non-finite values")
+        print(f"longseq: predictions pts3d {tuple(preds['pts3d'].shape)}, conf, inv_depth "
+              f"finite; valid fraction {float(preds['valid'].float().mean()):.4f}", flush=True)
+
+    stats = kernel_stats()
+    for st in stats.values():
+        st.reset()
+    text_ctx = np.zeros((1, 77, model.unet.context_dim), np.float32)
+    t0 = time.perf_counter()
+    record = run_longseq(model, text_ctx, frames, (h, w), device=dev, check=check)
+    wall = time.perf_counter() - t0
+    check_path_launches("longseq", stats)
+    if checked:
+        record["note"] += ("; earlier phases of this process ran the aligner, so align_cold_* "
+                           "is the first aligner run of this phase, not a cold one")
+    by_shape = {k: dict(st.by_shape) for k, st in stats.items()}
+    print(f"longseq: run_longseq {wall:.2f} s of wall (three diffusion runs, three aligner runs)",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_new = 0
+    with torch.no_grad():
+        for kernel, counts in by_shape.items():
+            for key, n in sorted(counts.items(), key=lambda kv: -kv[1]):
+                if (kernel, key) in checked:
+                    continue
+                max_abs, max_rel = check_kernel(kernel, key, g, dev)[4:]
+                n_new += 1
+                path = ""
+                if kernel == "group_norm":
+                    path = " path=" + gn.plan(*key[:3], num_groups_for(key[2]), sms)[0]
+                print(f"longseq {kernel:18s} {label(kernel, key):40s} launches={n}{path} "
+                      f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} repeat_equal=True",
+                      flush=True)
+                torch.cuda.empty_cache()
+    print(f"longseq: {n_new} new (kernel, shape) pairs checked, "
+          f"{sum(len(c) for c in by_shape.values()) - n_new} checked by earlier phases",
+          flush=True)
+    print("longseq " + json.dumps(record), flush=True)
+    return record
 
 
 ATTENTION_OPTIONS = {"plain": {}, "relative_position": dict(use_relative_position=True),
@@ -2128,6 +2212,8 @@ def main() -> int:
     ap.add_argument("--shapes-only", help="time only the (kernel, shape) list in this file")
     ap.add_argument("--train-only", action="store_true",
                     help="phases 1-2 and the training phases 12-16 only")
+    ap.add_argument("--longseq-only", action="store_true",
+                    help="phases 1-2 and the long-sequence phase (18) only")
     ap.add_argument("--parallel-only", action="store_true",
                     help="phases 1-2, train_repeat (15) and the parallel phase (17) only")
     args = ap.parse_args()
@@ -2167,6 +2253,14 @@ def main() -> int:
         torch.backends.cudnn.benchmark = False
         parallel_phase(dev, train_repeat_phase(dev))
         return 0
+    if args.longseq_only:
+        from geo4d_tpu_torch.cli.common import prepare_inference_params
+        from geo4d_tpu_torch.models.presets import flagship, init_random_
+
+        model = init_random_(flagship(), dev, seed=0).eval()
+        prepare_inference_params(model, PROMPT)
+        longseq_phase(dev, model)
+        return 0
     if args.train_only:
         results, totals, launches, _ = training_phases(dev)
         print(json.dumps({"backward": {k: dict(results[k], **totals[k], launches=launches[k])
@@ -2177,7 +2271,11 @@ def main() -> int:
     launches, by_shape, model, text_ctx, uncond_text_ctx, scene = slice_phase(dev)
     evaluate_phase(dev, model, text_ctx, uncond_text_ctx, scene)
     del scene
-    resolutions_phase(dev, model, text_ctx)
+    checked = resolutions_phase(dev, model, text_ctx)
+    # the slice's shapes are checked (and timed) by the shapes phase
+    checked |= {(k, key) for k, rows in by_shape.items() for key in rows}
+    longseq_phase(dev, model, checked)
+    torch.cuda.empty_cache()
     with torch.no_grad():
         attention_options_phase(dev, model, text_ctx)
     del model

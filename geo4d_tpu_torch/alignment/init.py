@@ -98,15 +98,16 @@ def _init_gather(pred_flat: torch.Tensor, conf_flat: torch.Tensor, groups: np.nd
     return fov_x, fov_y, sub, sub_mask, s_all, R_all, t_all, pts_acc, conf_acc
 
 
-def _clamped_focals(fov_x: np.ndarray, fov_y: np.ndarray, H: int, W: int) -> np.ndarray:
+def _clamped_focals(fov_x: np.ndarray, fov_y: np.ndarray, H: int, W: int,
+                    outlier_rel_err: float = 0.6) -> np.ndarray:
     """Pixel focal of each window from MoGe's fields of view, averaged over
-    the axes; focals more than 60% off the mean of those above 30 px take
-    that mean."""
+    the axes; focals more than `outlier_rel_err` off the mean of those above
+    30 px take that mean."""
     focal = (0.5 / np.tan(fov_x / 2) * W + 0.5 / np.tan(fov_y / 2) * H) / 2
     good = focal > 30
     mean_focal = focal[good].mean() if good.any() else float(max(H, W))
     rel_err = np.abs(focal - mean_focal) / (mean_focal + 1e-12)
-    return np.where(rel_err > 0.6, mean_focal, focal)
+    return np.where(rel_err > outlier_rel_err, mean_focal, focal)
 
 
 @torch.no_grad()
@@ -196,11 +197,12 @@ def _init_from_group_device(aligner: GroupAligner, pred_pts, conf, niter_pnp: in
     return failures
 
 
-def recover_group_focals(ref_pointmaps: torch.Tensor, ref_conf: torch.Tensor) -> np.ndarray:
+def recover_group_focals(ref_pointmaps: torch.Tensor, ref_conf: torch.Tensor,
+                         outlier_rel_err: float = 0.6) -> np.ndarray:
     """MoGe focal (pixels, float64) of each window from its first frame's
     point map (G, H, W, 3) and confidence (G, H, W): z shifted positive over
     all windows, the 64 x 64 nearest downsample, pixels of confidence above
-    0.5, outliers clamped to the mean."""
+    0.5, focals more than `outlier_rel_err` off the mean clamped to it."""
     g, h, w, _ = ref_pointmaps.shape
     pts = ref_pointmaps.clone()
     pts[..., 2] = pts[..., 2] - pts[..., 2].min() + 1.0
@@ -209,7 +211,8 @@ def recover_group_focals(ref_pointmaps: torch.Tensor, ref_conf: torch.Tensor) ->
     xi = torch.arange(d, device=pts.device) * w // d
     _, fov_x, fov_y, _ = point_map_to_depth(pts[:, yi][:, :, xi], (ref_conf > 0.5)[:, yi][:, :, xi],
                                             downsample_size=(d, d), image_size=(h, w))
-    return _clamped_focals(fov_x.cpu().numpy(), fov_y.cpu().numpy(), h, w).astype(np.float64)
+    return _clamped_focals(fov_x.cpu().numpy(), fov_y.cpu().numpy(), h, w,
+                           outlier_rel_err).astype(np.float64)
 
 
 def _sim3_f64(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor):

@@ -9,6 +9,9 @@ zlib.
                           grayscale, else (H, W, C), as uint8 or uint16.
   write_png / encode_png  8-bit grayscale (H, W) or RGB (H, W, 3), filter 0,
                           one IDAT chunk.
+  write_gif / encode_gif  an animated GIF89a of palette-index frames with one
+                          global 256-colour palette, looping; lossless (the
+                          LZW stream holds every pixel as a literal code).
   lanczos_resize          uint8 (H, W, 3) -> (h, w, 3), bit for bit Pillow's
                           Image.resize(..., Image.LANCZOS): libImaging's
                           Resample.c coefficients (support 3 x max(scale, 1),
@@ -131,6 +134,55 @@ def encode_png(img: np.ndarray) -> bytes:
 def write_png(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(img))
+
+
+# a clear code after this many literals keeps the LZW code table below 512
+# entries, so every code stays 9 bits wide
+GIF_LITERALS_PER_CLEAR = 250
+
+
+def _gif_lzw(indices: np.ndarray) -> bytes:
+    """The image data of one frame of 8-bit palette indices: minimum code
+    size 8, then 9-bit codes packed LSB first in sub-blocks of at most 255
+    bytes: a clear code (256) before every GIF_LITERALS_PER_CLEAR literals,
+    the end code (257) last."""
+    px = indices.reshape(-1).astype(np.uint16)
+    k = GIF_LITERALS_PER_CLEAR
+    n_runs = -(-px.size // k)
+    codes = np.full(px.size + n_runs + 1, 256, np.uint16)
+    at = np.arange(px.size)
+    codes[at + at // k + 1] = px
+    codes[-1] = 257
+    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1).astype(np.uint8)
+    data = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return b"\x08" + blocks + b"\x00"
+
+
+def encode_gif(frames: np.ndarray, palette: np.ndarray, duration_ms: int) -> bytes:
+    """GIF89a bytes of (T, H, W) uint8 palette indices with a (256, 3) uint8
+    global palette, `duration_ms` a frame (stored in hundredths of a
+    second), looping forever."""
+    frames = np.asarray(frames)
+    palette = np.asarray(palette, np.uint8)
+    if frames.dtype != np.uint8 or frames.ndim != 3 or palette.shape != (256, 3):
+        raise ValueError(f"encode_gif takes uint8 (T, H, W) indices and a (256, 3) palette, "
+                         f"got {frames.dtype} {frames.shape} and {palette.shape}")
+    t, h, w = frames.shape
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), palette.tobytes(),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", 0) + b"\x00"]
+    for f in frames:
+        out.append(b"\x21\xf9\x04\x00" + struct.pack("<H", duration_ms // 10) + b"\x00\x00")
+        out.append(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0))
+        out.append(_gif_lzw(f))
+    out.append(b"\x3b")
+    return b"".join(out)
+
+
+def write_gif(path: str, frames: np.ndarray, palette: np.ndarray, duration_ms: int) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_gif(frames, palette, duration_ms))
 
 
 def _coeffs(in_size: int, out_size: int, support: float, weights) -> Tuple[np.ndarray, np.ndarray]:

@@ -18,7 +18,7 @@ import ctypes
 import glob
 import os
 import subprocess
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -96,12 +96,14 @@ def load_video(path: str, frame_stride: int, video_size: Tuple[int, int],
     return frames, int(fps / frame_stride)
 
 
-def load_image_dir(dir_path: str, video_size: Tuple[int, int],
-                   max_frames: int = -1) -> Tuple[np.ndarray, List[str]]:
-    """The .png/.jpg/.jpeg files of a directory in name order, each resized
-    to video_size (W, H) with Lanczos -> ((T, H, W, 3) uint8, file names)."""
+def load_image_dir(dir_path: str, video_size: Tuple[int, int], max_frames: int = -1,
+                   exts: Sequence[str] = (".png", ".jpg", ".jpeg")
+                   ) -> Tuple[np.ndarray, List[str]]:
+    """The files of a directory with an extension in `exts` (PNG or JPEG),
+    in name order, each resized to video_size (W, H) with Lanczos ->
+    ((T, H, W, 3) uint8, file names)."""
     files = sorted(f for f in glob.glob(os.path.join(dir_path, "*"))
-                   if os.path.splitext(f)[1].lower() in (".png", ".jpg", ".jpeg"))
+                   if os.path.splitext(f)[1].lower() in exts)
     if max_frames > 0:
         files = files[:max_frames]
     if not files:

@@ -14,7 +14,7 @@ from geo4d_tpu_torch.evals.trajectory import Trajectory, umeyama_align
 
 
 def plot_trajectory(out_path: str, pred: Trajectory, gt: Optional[Trajectory] = None,
-                    title: str = "", align: bool = True) -> str:
+                    title: str = "", align: bool = True, correct_scale: bool = True) -> str:
     """Top-down trajectory plot -> PNG at out_path."""
     import matplotlib
 
@@ -23,7 +23,7 @@ def plot_trajectory(out_path: str, pred: Trajectory, gt: Optional[Trajectory] = 
 
     pred_pos = pred.positions
     if gt is not None and align:
-        s, R, t = umeyama_align(pred, gt)
+        s, R, t = umeyama_align(pred, gt, correct_scale=correct_scale)
         pred_pos = (s * pred_pos) @ R.T + t
     ref_pos = gt.positions if gt is not None else pred_pos
     order = np.argsort(np.var(ref_pos, axis=0))

@@ -1,8 +1,8 @@
 """Camera-trajectory metrics in numpy, the port's copy of what it needs from
 geo4d_tpu/evals/trajectory.py: ATE and RPE with sim3 alignment
 (`eval_metrics`), the origin-aligned variant the aligner's calibration uses
-(`align_trajectory_with_eval`), and TUM rows both ways (the results
-directory, the evaluation's ground truth).
+(`align_trajectory_with_eval`), and TUM rows both ways, in arrays and in
+files (the results directory, the evaluation's ground truth).
 The definitions are evo's (the reference's dust3r/utils/vo_eval.py); they
 run on small (N, 4, 4) arrays on the host.
 """
@@ -75,10 +75,11 @@ class Trajectory:
         return Trajectory(rows[:, 1:4], quat_wxyz_to_rotmat(q_wxyz), rows[:, 0])
 
     @staticmethod
-    def from_matrices(poses: np.ndarray) -> "Trajectory":
-        """(N, 4, 4) c2w -> a trajectory with timestamps 0..N-1."""
+    def from_matrices(poses: np.ndarray, timestamps=None) -> "Trajectory":
+        """(N, 4, 4) c2w -> a trajectory, with timestamps 0..N-1 unless given."""
         poses = np.asarray(poses, np.float64)
-        return Trajectory(poses[:, :3, 3].copy(), poses[:, :3, :3].copy(), np.arange(len(poses)))
+        ts = np.arange(len(poses)) if timestamps is None else np.asarray(timestamps)
+        return Trajectory(poses[:, :3, 3].copy(), poses[:, :3, :3].copy(), ts)
 
     def matrices(self) -> np.ndarray:
         P = np.tile(np.eye(4), (len(self.positions), 1, 1))
@@ -92,15 +93,28 @@ class Trajectory:
         q_xyzw = np.concatenate([q_wxyz[:, 1:], q_wxyz[:, :1]], axis=-1)
         return np.concatenate([self.timestamps[:, None], self.positions, q_xyzw], axis=-1)
 
-    def transformed(self, T: np.ndarray) -> "Trajectory":
-        """T @ P for every pose P (T an SE3)."""
+    def transformed(self, T: np.ndarray, scale: float = 1.0) -> "Trajectory":
+        """The sim3 (T an SE3, then `scale`): positions scaled, then T @ P
+        for every pose P."""
         R, t = T[:3, :3], T[:3, 3]
-        return Trajectory(self.positions @ R.T + t,
+        return Trajectory((scale * self.positions) @ R.T + t,
                           np.einsum("ij,njk->nik", R, self.rotations), self.timestamps)
 
 
-def umeyama_align(est: Trajectory, ref: Trajectory) -> Tuple[float, np.ndarray, np.ndarray]:
-    """(s, R, t) aligning est positions onto ref (evo's sim3 align)."""
+def save_tum(path: str, traj: Trajectory):
+    """Write the TUM rows of `traj` as text."""
+    np.savetxt(path, traj.to_tum())
+
+
+def load_tum(path: str) -> Trajectory:
+    """Read a TUM text file."""
+    return Trajectory.from_tum(np.loadtxt(path))
+
+
+def umeyama_align(est: Trajectory, ref: Trajectory, correct_scale: bool = True
+                  ) -> Tuple[float, np.ndarray, np.ndarray]:
+    """(s, R, t) aligning est positions onto ref (evo's sim3 align; s = 1
+    without `correct_scale`)."""
     src, dst = est.positions, ref.positions
     mu_s, mu_d = src.mean(0), dst.mean(0)
     xs, xd = src - mu_s, dst - mu_d
@@ -109,7 +123,9 @@ def umeyama_align(est: Trajectory, ref: Trajectory) -> Tuple[float, np.ndarray, 
     if np.linalg.det(U @ Vt) < 0:
         S[2, 2] = -1
     R = U @ S @ Vt
-    s = float(np.trace(np.diag(D) @ S) / ((xs**2).sum() / len(src) + 1e-12))
+    s = 1.0
+    if correct_scale:
+        s = float(np.trace(np.diag(D) @ S) / ((xs**2).sum() / len(src) + 1e-12))
     return s, R, mu_d - s * R @ mu_s
 
 
@@ -121,12 +137,13 @@ def align_origin(est: Trajectory, ref: Trajectory) -> np.ndarray:
     return R0 @ np.linalg.inv(E0)
 
 
-def ape_translation_rmse(est: Trajectory, ref: Trajectory, align: bool) -> float:
-    """APE on the translation part (the ATE definition), sim3-aligned first
-    when `align`."""
+def ape_translation_rmse(est: Trajectory, ref: Trajectory, align: bool = True,
+                         correct_scale: bool = True) -> float:
+    """APE on the translation part (the ATE definition), aligned first when
+    `align` (sim3, or SE3 without `correct_scale`)."""
     pos = est.positions
     if align:
-        s, R, t = umeyama_align(est, ref)
+        s, R, t = umeyama_align(est, ref, correct_scale)
         pos = (s * pos) @ R.T + t
     err = np.linalg.norm(pos - ref.positions, axis=-1)
     return float(np.sqrt(np.mean(err**2)))
@@ -137,14 +154,14 @@ def _rotation_angle_deg(R: np.ndarray) -> np.ndarray:
     return np.degrees(np.arccos(tr))
 
 
-def rpe(est: Trajectory, ref: Trajectory, align: bool) -> Tuple[float, float]:
-    """RPE (trans RMSE, rot RMSE deg) between consecutive frames: the
-    relative error E_i = inv(rel_ref_i) @ rel_est_i over pairs (i, i+1),
-    sim3-aligned first when `align`."""
-    delta = 1
+def rpe(est: Trajectory, ref: Trajectory, delta: int = 1, align: bool = True,
+        correct_scale: bool = True) -> Tuple[float, float]:
+    """RPE (trans RMSE, rot RMSE deg) at frame `delta`: the relative error
+    E_i = inv(rel_ref_i) @ rel_est_i over all pairs (i, i + delta), aligned
+    first when `align` (sim3, or SE3 without `correct_scale`)."""
     est_m = est.matrices()
     if align:
-        s, R, t = umeyama_align(est, ref)
+        s, R, t = umeyama_align(est, ref, correct_scale)
         T = np.eye(4)
         T[:3, :3], T[:3, 3] = R, t
         est_m = np.einsum("ij,njk->nik", T, est_m)
@@ -163,7 +180,7 @@ def rpe(est: Trajectory, ref: Trajectory, align: bool) -> Tuple[float, float]:
 def eval_metrics(pred: Trajectory, ref: Trajectory) -> Tuple[float, float, float]:
     """(ATE, RPE-trans, RPE-rot-deg), sim3-aligned, delta 1."""
     ate = ape_translation_rmse(pred, ref, align=True)
-    rpe_trans, rpe_rot = rpe(pred, ref, align=True)
+    rpe_trans, rpe_rot = rpe(pred, ref, delta=1, align=True)
     return ate, rpe_trans, rpe_rot
 
 
@@ -174,5 +191,5 @@ def align_trajectory_with_eval(pred: Trajectory, ref: Trajectory
     P = align_origin(pred, ref)
     aligned = pred.transformed(P)
     ate = ape_translation_rmse(aligned, ref, align=False)
-    rpe_trans, rpe_rot = rpe(aligned, ref, align=False)
+    rpe_trans, rpe_rot = rpe(aligned, ref, delta=1, align=False)
     return ate, rpe_trans, rpe_rot, P, aligned

@@ -107,3 +107,28 @@ def point_map_to_depth(points: torch.Tensor, mask: Optional[torch.Tensor] = None
     depth = pts[..., 2] + shift[:, None, None]
     lead = shape[:-3]
     return depth.reshape(*lead, h, w), fov_x.reshape(lead), fov_y.reshape(lead), shift.reshape(lead)
+
+
+def focal_px_from_fov(fov_x: torch.Tensor, width: int) -> torch.Tensor:
+    """FoV-x -> focal length in pixels for an image of `width`."""
+    return 0.5 * width / torch.tan(fov_x / 2)
+
+
+def estimate_focal_weiszfeld(points: torch.Tensor, num_iters: int = 10) -> torch.Tensor:
+    """Robust (L1) focal of a centred (H, W, 3) camera-frame point map:
+    min over f of sum |f * xy / z - pixel|, the principal point at the
+    image centre, by `num_iters` Weiszfeld (IRLS) steps from the
+    least-squares focal."""
+    h, w = points.shape[:2]
+    dt, dev = points.dtype, points.device
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=dt, device=dev) - (h - 1) / 2,
+                            torch.arange(w, dtype=dt, device=dev) - (w - 1) / 2, indexing="ij")
+    pix = torch.stack([xx, yy], dim=-1).reshape(-1, 2)
+    xy_over_z = points[..., :2].reshape(-1, 2) / torch.clamp(points[..., 2].reshape(-1, 1),
+                                                             min=1e-6)
+    f = (xy_over_z * pix).sum() / ((xy_over_z ** 2).sum() + 1e-12)
+    for _ in range(num_iters):
+        dist = torch.linalg.norm(f * xy_over_z - pix, dim=-1)
+        wgt = 1.0 / torch.clamp(dist, min=1e-6)
+        f = (wgt[:, None] * xy_over_z * pix).sum() / ((wgt[:, None] * xy_over_z ** 2).sum() + 1e-12)
+    return f

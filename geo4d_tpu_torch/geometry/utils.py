@@ -6,11 +6,13 @@ from __future__ import annotations
 import torch
 
 
-def xy_grid(width: int, height: int, device=None, dtype=torch.float32) -> torch.Tensor:
-    """Pixel grid (H, W, 2) with (x, y) ordering."""
+def xy_grid(width: int, height: int, device=None, dtype=torch.float32,
+            homogeneous: bool = False) -> torch.Tensor:
+    """Pixel grid (H, W, 2) with (x, y) ordering; (H, W, 3) with a third
+    coordinate of 1 when `homogeneous`."""
     y, x = torch.meshgrid(torch.arange(height, dtype=dtype, device=device),
                           torch.arange(width, dtype=dtype, device=device), indexing="ij")
-    return torch.stack([x, y], dim=-1)
+    return torch.stack([x, y, torch.ones_like(x)] if homogeneous else [x, y], dim=-1)
 
 
 def geotrf(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

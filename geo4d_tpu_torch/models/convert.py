@@ -51,17 +51,31 @@ def load_tower(module: torch.nn.Module, state_dict: Mapping, prefix: str = "",
     return len(want)
 
 
+def load_torch_checkpoint(path: str):
+    """torch.load with `weights_only` unpickling first; a container
+    checkpoint that pickles non-tensor state (a Lightning `hyper_parameters`
+    object, DeepSpeed's client state) loads with full unpickling after a
+    warning, as the JAX package's loader does. A missing path raises."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except FileNotFoundError:
+        raise
+    except Exception:
+        print(f"[ckpt] WARNING: {path} is not a plain-tensor checkpoint; "
+              "falling back to full unpickling — only load trusted files")
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
 def load_checkpoints(model: torch.nn.Module, ckpt_path: Optional[str] = None,
                      vae_ckpt_path: Optional[str] = None, verbose: bool = True
                      ) -> Dict[str, int]:
     """Fill a GeoDiffusion from the published checkpoints: the model .ckpt
     (Lightning or DeepSpeed layout) for every tower the model has, and
-    `vae.ckpt` for the pointmap VAE. Plain tensor checkpoints only
-    (`weights_only` unpickling). Returns {tower: tensors loaded}; a tower
-    with tensors missing raises."""
+    `vae.ckpt` for the pointmap VAE, each read by `load_torch_checkpoint`.
+    Returns {tower: tensors loaded}; a tower with tensors missing raises."""
     reports: Dict[str, int] = {}
     if ckpt_path:
-        sd = strip_prefixes(torch.load(ckpt_path, map_location="cpu", weights_only=True))
+        sd = strip_prefixes(load_torch_checkpoint(ckpt_path))
         for tower, prefix in CKPT_PREFIXES.items():
             module = getattr(model, TOWER_MODULES[tower])
             if module is not None:
@@ -69,7 +83,7 @@ def load_checkpoints(model: torch.nn.Module, ckpt_path: Optional[str] = None,
     if vae_ckpt_path:
         if model.pointmap_vae is None:
             raise ValueError(f"{vae_ckpt_path}: the model has no pointmap VAE to load it into")
-        raw = torch.load(vae_ckpt_path, map_location="cpu", weights_only=True)
+        raw = load_torch_checkpoint(vae_ckpt_path)
         reports["pointmap_vae"] = load_tower(model.pointmap_vae, raw.get("state_dict", raw),
                                              "model.", "pointmap_vae")
     if verbose:

@@ -26,7 +26,7 @@ from typing import Optional
 
 import numpy as np
 
-from geo4d_tpu_torch.data.images import write_png
+from geo4d_tpu_torch.data.images import write_gif, write_png
 
 # per-camera edge colours, cycled
 _CAM_PALETTE = np.asarray(
@@ -129,41 +129,33 @@ def write_scene_glb(path: str, points: np.ndarray, point_colors: np.ndarray,
 
     chunks = [points.tobytes(), point_colors.tobytes(), tri_verts.tobytes(),
               tri_colors.tobytes(), tri_faces.tobytes()]
+    bin_data, offsets = _padded_bin(chunks)
+    gltf = _gltf(
+        [{"mesh": 0, "name": "pointcloud"}, {"mesh": 1, "name": "cameras"}],
+        [{"primitives": [{"attributes": {"POSITION": 0, "COLOR_0": 1}, "mode": 0}]},
+         {"primitives": [{"attributes": {"POSITION": 2, "COLOR_0": 3}, "indices": 4,
+                          "mode": 4}]}],
+        [_vec3(0, points, True), _vec3(1, point_colors, False), _vec3(2, tri_verts, True),
+         _vec3(3, tri_colors, False),
+         {"bufferView": 4, "componentType": 5125, "count": tri_faces.size, "type": "SCALAR"}],
+        chunks, offsets, len(bin_data))
+    _write_glb(path, gltf, bin_data)
+
+
+def _padded_bin(chunks):
+    """The BIN chunk: the byte strings back to back, zero-padded to 4 bytes;
+    and each one's offset."""
     offsets, off = [], 0
     for c in chunks:
         offsets.append(off)
         off += len(c)
     bin_data = b"".join(chunks)
-    bin_data += b"\x00" * ((4 - len(bin_data) % 4) % 4)
+    return bin_data + b"\x00" * ((4 - len(bin_data) % 4) % 4), offsets
 
-    def vec3_acc(view, count, arr=None):
-        acc = {"bufferView": view, "componentType": 5126, "count": count, "type": "VEC3"}
-        if arr is not None:
-            acc["min"] = arr.min(0).tolist() if count else [0, 0, 0]
-            acc["max"] = arr.max(0).tolist() if count else [0, 0, 0]
-        return acc
 
-    gltf = {
-        "asset": {"version": "2.0", "generator": "geo4d_tpu"},
-        "scene": 0,
-        "scenes": [{"nodes": [0, 1]}],
-        "nodes": [{"mesh": 0, "name": "pointcloud"}, {"mesh": 1, "name": "cameras"}],
-        "meshes": [
-            {"primitives": [{"attributes": {"POSITION": 0, "COLOR_0": 1}, "mode": 0}]},
-            {"primitives": [{"attributes": {"POSITION": 2, "COLOR_0": 3}, "indices": 4,
-                             "mode": 4}]},
-        ],
-        "accessors": [
-            vec3_acc(0, len(points), points),
-            vec3_acc(1, len(point_colors)),
-            vec3_acc(2, len(tri_verts), tri_verts),
-            vec3_acc(3, len(tri_colors)),
-            {"bufferView": 4, "componentType": 5125, "count": tri_faces.size, "type": "SCALAR"},
-        ],
-        "bufferViews": [{"buffer": 0, "byteOffset": offsets[i], "byteLength": len(chunks[i])}
-                        for i in range(5)],
-        "buffers": [{"byteLength": len(bin_data)}],
-    }
+def _write_glb(path: str, gltf: dict, bin_data: bytes):
+    """A binary glTF 2.0 file: header, the JSON chunk (space-padded), the
+    BIN chunk."""
     json_data = json.dumps(gltf).encode()
     json_data += b" " * ((4 - len(json_data) % 4) % 4)
     total = 12 + 8 + len(json_data) + 8 + len(bin_data)
@@ -173,6 +165,127 @@ def write_scene_glb(path: str, points: np.ndarray, point_colors: np.ndarray,
         f.write(json_data)
         f.write(struct.pack("<II", len(bin_data), 0x004E4942))   # BIN chunk
         f.write(bin_data)
+
+
+def _gltf(nodes: list, meshes: list, accessors: list, chunks: list, offsets: list,
+          bin_len: int) -> dict:
+    return {
+        "asset": {"version": "2.0", "generator": "geo4d_tpu"},
+        "scene": 0,
+        "scenes": [{"nodes": list(range(len(nodes)))}],
+        "nodes": nodes,
+        "meshes": meshes,
+        "accessors": accessors,
+        "bufferViews": [{"buffer": 0, "byteOffset": o, "byteLength": len(c)}
+                        for o, c in zip(offsets, chunks)],
+        "buffers": [{"byteLength": bin_len}],
+    }
+
+
+def _vec3(view: int, arr: np.ndarray, bounds: bool) -> dict:
+    acc = {"bufferView": view, "componentType": 5126, "count": len(arr), "type": "VEC3"}
+    if bounds:
+        acc["min"] = arr.min(0).tolist() if len(arr) else [0, 0, 0]
+        acc["max"] = arr.max(0).tolist() if len(arr) else [0, 0, 0]
+    return acc
+
+
+def write_pointcloud_glb(path: str, points: np.ndarray, colors: np.ndarray):
+    """Binary glTF point cloud: one POINTS primitive, POSITION + COLOR_0."""
+    points = np.asarray(points, np.float32)
+    colors = np.asarray(colors, np.float32)
+    chunks = [points.tobytes(), colors.tobytes()]
+    bin_data, offsets = _padded_bin(chunks)
+    gltf = _gltf([{"mesh": 0}],
+                 [{"primitives": [{"attributes": {"POSITION": 0, "COLOR_0": 1}, "mode": 0}]}],
+                 [_vec3(0, points, True), _vec3(1, colors, False)], chunks, offsets,
+                 len(bin_data))
+    _write_glb(path, gltf, bin_data)
+
+
+def pointmap_to_mesh(pts: np.ndarray, colors: np.ndarray, mask: Optional[np.ndarray] = None):
+    """Grid mesh of an (H, W, 3) point map with (H, W, 3) colours in [0, 1]:
+    two triangles per pixel quad, a triangle dropped when any of its
+    vertices is masked out. Returns (vertices (V, 3), vertex colours (V, 3),
+    faces (F, 3) uint32)."""
+    h, w = pts.shape[:2]
+    verts = pts.reshape(-1, 3).astype(np.float32)
+    cols = colors.reshape(-1, 3).astype(np.float32)
+    idx = np.arange(h * w).reshape(h, w)
+    tl, tr = idx[:-1, :-1].ravel(), idx[:-1, 1:].ravel()
+    bl, br = idx[1:, :-1].ravel(), idx[1:, 1:].ravel()
+    faces = np.concatenate([np.stack([tl, bl, tr], 1), np.stack([tr, bl, br], 1)],
+                           axis=0).astype(np.uint32)
+    if mask is not None:
+        faces = faces[mask.reshape(-1)[faces].all(axis=1)]
+    return verts, cols, faces
+
+
+def write_mesh_glb(path: str, vertices: np.ndarray, colors: np.ndarray, faces: np.ndarray):
+    """Binary glTF triangle mesh with vertex colours."""
+    vertices = np.asarray(vertices, np.float32)
+    colors = np.asarray(colors, np.float32)
+    faces = np.asarray(faces, np.uint32)
+    chunks = [vertices.tobytes(), colors.tobytes(), faces.tobytes()]
+    bin_data, offsets = _padded_bin(chunks)
+    gltf = _gltf([{"mesh": 0}],
+                 [{"primitives": [{"attributes": {"POSITION": 0, "COLOR_0": 1}, "indices": 2,
+                                   "mode": 4}]}],
+                 [_vec3(0, vertices, True), _vec3(1, colors, False),
+                  {"bufferView": 2, "componentType": 5125, "count": faces.size,
+                   "type": "SCALAR"}], chunks, offsets, len(bin_data))
+    _write_glb(path, gltf, bin_data)
+
+
+# matplotlib's `jet` (its _cm.py segment data): (x, y0, y1) breakpoints per channel
+_JET_SEGMENTS = {
+    "red": ((0.0, 0, 0), (0.35, 0, 0), (0.66, 1, 1), (0.89, 1, 1), (1, 0.5, 0.5)),
+    "green": ((0.0, 0, 0), (0.125, 0, 0), (0.375, 1, 1), (0.64, 1, 1), (0.91, 0, 0),
+              (1, 0, 0)),
+    "blue": ((0.0, 0.5, 0.5), (0.11, 1, 1), (0.34, 1, 1), (0.65, 0, 0), (1, 0, 0)),
+}
+
+
+def jet_lut(n: int = 256) -> np.ndarray:
+    """(n, 3) float64 RGB table of matplotlib's `jet`, built as
+    LinearSegmentedColormap builds it (gamma 1)."""
+    cols = []
+    for ch in ("red", "green", "blue"):
+        a = np.asarray(_JET_SEGMENTS[ch], np.float64)
+        x, y0, y1 = a[:, 0] * (n - 1), a[:, 1], a[:, 2]
+        xind = (n - 1) * np.linspace(0, 1, n)
+        ind = np.searchsorted(x, xind)[1:-1]
+        distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+        lut = np.concatenate([[y1[0]], distance * (y0[ind] - y1[ind - 1]) + y1[ind - 1],
+                              [y0[-1]]])
+        cols.append(np.clip(lut, 0.0, 1.0))
+    return np.stack(cols, axis=-1)
+
+
+def jet_indices(norm: np.ndarray, n: int = 256) -> np.ndarray:
+    """The jet table's index of each value of a float array in [0, 1], by
+    matplotlib's Colormap rule: x * n in the array's dtype, n -> n - 1,
+    truncated."""
+    xa = np.array(norm, copy=True)
+    xa *= n
+    xa[xa == n] = n - 1
+    return xa.astype(int)
+
+
+def save_depth_visualizations(out_dir: str, depths: np.ndarray, fps: int = 8):
+    """Jet-coloured depth PNGs `depth_XXXX.png` and an animated `depth.gif`,
+    the depths normalised between their 2nd and 98th percentiles. The GIF's
+    global palette is the jet table, so its frames are the PNGs exactly."""
+    os.makedirs(out_dir, exist_ok=True)
+    d = np.asarray(depths, np.float32)
+    lo, hi = np.percentile(d, 2), np.percentile(d, 98)
+    norm = np.clip((d - lo) / max(hi - lo, 1e-8), 0, 1)
+    palette = (jet_lut() * 255).astype(np.uint8)
+    idx = jet_indices(norm).astype(np.uint8)
+    for i in range(len(d)):
+        write_png(os.path.join(out_dir, f"depth_{i:04d}.png"), palette[idx[i]])
+    if len(d):
+        write_gif(os.path.join(out_dir, "depth.gif"), idx, palette, int(1000 / fps))
 
 
 def save_time_cost(path: str, timing: dict):

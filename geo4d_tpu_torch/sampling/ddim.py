@@ -66,7 +66,7 @@ def ddim_sample(model_fn: Callable[[torch.Tensor, int, int], torch.Tensor], shap
                 generator: Optional[torch.Generator] = None, parameterization: str = "v",
                 cfg_scale: float = 1.0, cfg_img: Optional[float] = None,
                 guidance_rescale: float = 0.0, x_T: Optional[torch.Tensor] = None,
-                timer=None) -> torch.Tensor:
+                temperature: float = 1.0, timer=None) -> torch.Tensor:
     """Run the DDIM reverse process and return the final x_0 latents.
 
     model_fn(x, t, branches) gets x stacked `branches` times along the batch
@@ -74,8 +74,9 @@ def ddim_sample(model_fn: Callable[[torch.Tensor, int, int], torch.Tensor], shap
     stacking. Noise (x_T when not given, and eta > 0 step noise) is drawn
     from `generator`: a torch.Generator, or draws (core/draws.py) whose
     `normal(shape)` gives it, such as a rank's `RankDraws`, which draws for
-    the whole batch and keeps the rank's rows. `timer(name)`, if given, is a
-    context manager wrapped around each step.
+    the whole batch and keeps the rank's rows; `temperature` scales the step
+    noise. `timer(name)`, if given, is a context manager wrapped around each
+    step.
     """
     use_cfg = cfg_scale != 1.0
     multicond = use_cfg and cfg_img is not None and cfg_img != 1.0
@@ -120,7 +121,7 @@ def ddim_sample(model_fn: Callable[[torch.Tensor, int, int], torch.Tensor], shap
             dir_coef = float(np.sqrt(np.maximum(f32(1.0) - a_prev - sigma_t * sigma_t, f32(0.0))))
             x = float(np.sqrt(a_prev)) * pred_x0 + dir_coef * e_t
             if sigma_t != 0.0:
-                x = x + float(sigma_t) * _normal(generator, x.shape, device)
+                x = x + float(sigma_t) * _normal(generator, x.shape, device) * temperature
     return x
 
 

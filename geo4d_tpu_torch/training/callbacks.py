@@ -1,8 +1,9 @@
-"""Training observability: metric logging and device stats, port of
-geo4d_tpu/training/callbacks.py (the reference's main/callbacks.py
-`CUDACallback`: epoch wall time and peak device memory). The JAX package's
-`SampleLogger` writes mp4 grids through OpenCV, which the port does not
-use; it is not ported yet."""
+"""Training observability: metric logging, sample logging and device
+stats, port of geo4d_tpu/training/callbacks.py (the reference's
+main/callbacks.py `ImageLogger`: periodic sample grids, and `CUDACallback`:
+epoch wall time and peak device memory). Sample grids are uncompressed AVI
+files (data/save_video.py), where the JAX package writes mp4 through
+OpenCV."""
 
 from __future__ import annotations
 
@@ -11,7 +12,10 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+
+from geo4d_tpu_torch.data.save_video import save_video_grid
 
 
 class MetricLogger:
@@ -39,6 +43,25 @@ class MetricLogger:
             print(f"[train] step {step}: " + " ".join(
                 f"{k}={row[k]:.5g}" if isinstance(row[k], float) else f"{k}={row[k]}"
                 for k in metrics))
+
+
+class SampleLogger:
+    """Every `every` steps, the decoded samples as one grid video
+    `<log_dir>/samples/step_XXXXXXXX.avi`."""
+
+    def __init__(self, log_dir: str, every: int = 1000, fps: int = 8):
+        self.dir = os.path.join(log_dir, "samples")
+        os.makedirs(self.dir, exist_ok=True)
+        self.every = every
+        self.fps = fps
+
+    def maybe_log(self, step: int, videos) -> Optional[str]:
+        """videos: (T, H, W, 3) arrays in [-1, 1]. Returns the path written,
+        or None off the logging steps."""
+        if step % self.every:
+            return None
+        path = os.path.join(self.dir, f"step_{step:08d}.avi")
+        return save_video_grid(path, [np.asarray(v) for v in videos], self.fps)
 
 
 def device_memory_stats() -> Dict[str, float]:

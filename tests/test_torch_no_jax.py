@@ -114,3 +114,40 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+BLOCKED = r"""
+import json, os, sys, tempfile
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "geo4d_tpu"):
+    sys.modules[name] = None       # importing any of these now raises
+import numpy as np
+import torch
+from geo4d_tpu_torch.core.profiling import trace
+from geo4d_tpu_torch.data.save_video import save_video_grid
+from geo4d_tpu_torch.models.presets import init_random_, tiny
+from geo4d_tpu_torch.pipeline.export import save_depth_visualizations
+from geo4d_tpu_torch.tools import longseq
+
+with tempfile.TemporaryDirectory() as tmp:
+    with trace(os.path.join(tmp, "prof")):
+        model = init_random_(tiny(temporal_length=16, device="meta"), "cpu", seed=0).eval()
+        rec = longseq.run_longseq(model, np.zeros((1, 77, 64), np.float32), frames=16,
+                                  hw=(16, 32), window_batch=1, n_iter=2, device="cpu")
+    assert rec["windows"] == 1 and np.isfinite(rec["e2e_s"])
+    assert json.load(open(os.path.join(tmp, "prof", "trace.json")))["traceEvents"]
+    save_video_grid(os.path.join(tmp, "grid.avi"), [np.zeros((2, 8, 8, 3), np.float32)] * 3)
+    save_depth_visualizations(os.path.join(tmp, "viz"), np.ones((2, 8, 8), np.float32))
+    assert os.path.getsize(os.path.join(tmp, "viz", "depth.gif")) > 0
+print("ok")
+"""
+
+
+def test_new_modules_run_with_jax_opencv_and_pillow_blocked():
+    """tools/longseq.py, data/save_video.py and core/profiling.py in an
+    interpreter where JAX, OpenCV, Pillow and the JAX package cannot be
+    imported."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", BLOCKED], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")

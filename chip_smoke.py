@@ -139,6 +139,29 @@ the final `ok` line):
    diffusion and of the aligner, stage seconds) on one line prefixed
    `longseq`.
 
+19. offline (run right after phase 11, on the host of the card, where there
+   is no OpenCV, Pillow or h5py): (a) every offline tool of the port
+   (geo4d_tpu_torch/tools/offline_check.py: the training-set preparers of
+   BlendedMVS, StaticThings3D, CO3D, WildRGB-D, ARKitScenes, Waymo (crop and
+   pairs) and ScanNet++ (a fisheye DSLR and two radial-tangential iPhone
+   frames), habitat's preprocess_metadata with a seeded render_fn, the .sens
+   export and the mesh rasteriser) on seeded raw files written with the
+   port's own encoders, each output tree held to the JAX package's outputs
+   committed in tests/fixtures/torch_offline (PNG pixels, JPEG and EXR bytes,
+   arrays within 1e-9 relative); prepare_megadepth and prepare_nyuv2 must
+   raise the JAX package's h5py errors; (b) once at published sizes, timed
+   on the host clock: ScanNet++'s undistort of a 1752x1168 fisheye and a
+   1920x1440 iPhone frame, render_mesh_depth of a seeded ~1e6-triangle room
+   at 1752x1168, a 10-frame .sens export of 1296x968 colour with 640x480
+   depth (as it is and resized to 640x480), a habitat crop at 512x512 from a
+   1024x2048 envmap; the raster library against its numpy version on a small
+   mesh; (c) the viewer over the slice's results directory (kept from phase
+   4; `--offline-only` writes a seeded one of the same size):
+   load_results_dir, export_html, and a ViewerServer on 127.0.0.1 whose
+   meta message and every frame a stdlib websocket client fetches; frame and
+   point counts must equal load_results_dir's. Prints the record on one line
+   prefixed `offline`.
+
 The second-to-last line is a JSON object with one entry per kernel (the
 backward kernels from phases 12 and 14); the last line is
 {"ok": true, "device": {...}}.
@@ -148,6 +171,7 @@ backward kernels from phases 12 and 14); the last line is
     python3 chip_smoke.py --train-only          # phases 1-2 and 12-16 only
     python3 chip_smoke.py --parallel-only       # phases 1-2, 15 and 17 only
     python3 chip_smoke.py --longseq-only        # phases 1-2 and 18 only
+    python3 chip_smoke.py --offline-only        # phases 1-2 and 19 only
 
 `--shapes-only` times the saved (kernel, shape, launches) list through the
 `geo4d_tpu_torch` beside this script; a copy of the script in an unpacked
@@ -158,6 +182,7 @@ versions can be compared in one call.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
 import shutil
@@ -206,9 +231,10 @@ FLOW_TERM_REL = 1e-9
 VIDEO_LSB = 2
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                         "torch_inputs")
-# nothing of these may be loaded by the end of the run; Pillow is also made
-# unimportable before the port is imported
-FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "geo4d_tpu", "PIL")
+# nothing of these may be loaded by the end of the run (the offline tools
+# import h5py only where it is needed, and the card has none); Pillow is also
+# made unimportable before the port is imported
+FOREIGN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "geo4d_tpu", "PIL", "h5py")
 PROMPT = "Output a video that assigns each 3D location in the world a consistent color."
 
 
@@ -529,7 +555,7 @@ def shapes_phase(dev, by_shape):
     return totals
 
 
-def slice_phase(dev):
+def slice_phase(dev, results_dir):
     from geo4d_tpu_torch.cli.common import prepare_inference_params
     from geo4d_tpu_torch.core.timing import StageTimer
     from geo4d_tpu_torch.models.presets import flagship, init_random_
@@ -593,7 +619,7 @@ def slice_phase(dev):
     if not np.isfinite(scene.final_loss):
         raise AssertionError(f"aligner final loss {scene.final_loss}")
 
-    traj, K, export_s = export_and_check(scene, frames)
+    traj, K, export_s = export_and_check(scene, frames, results_dir)
 
     sec = timer.seconds
     align_iters = scene.cfg.n_iter
@@ -607,7 +633,8 @@ def slice_phase(dev):
           f"{scene.pnp_failures} of 20 frames (identity pose); final loss {scene.final_loss!r}; "
           f"focal {float(scene.get_focals()[0]):.3f}")
     print(f"slice: results directory written and checked in {export_s:.2f} s "
-          f"(pred_traj {traj.shape}, pred_intrinsics {K.shape}, 20 depth and conf maps)")
+          f"(pred_traj {traj.shape}, pred_intrinsics {K.shape}, 20 depth and conf maps; kept "
+          "for the offline phase's viewer)")
     print(f"slice: peak memory allocated {peak} bytes")
     print(f"slice: valid fraction {float(out['valid'].float().mean()):.4f}", flush=True)
     sums = {k: float(v.double().sum()) for k, v in out.items()}
@@ -616,16 +643,16 @@ def slice_phase(dev):
     return launches, by_shape, model, text_ctx, uncond_text_ctx, scene
 
 
-def export_and_check(scene, frames):
-    """Write the results directory of a 20-frame scene to a temporary
-    directory and check its files (shapes, finite values); returns the
-    trajectory and intrinsics arrays and the seconds taken."""
+def export_and_check(scene, frames, out_dir=None):
+    """Write the results directory of a 20-frame scene to `out_dir` (kept)
+    or to a temporary directory and check its files (shapes, finite values);
+    returns the trajectory and intrinsics arrays and the seconds taken."""
     from geo4d_tpu_torch.pipeline.export import save_results_dir
 
     n, h, w = frames.shape[:3]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        out_dir = os.path.join(tmp, "smoke")
+        out_dir = out_dir or os.path.join(tmp, "smoke")
         save_results_dir(out_dir, scene, rgb_frames=frames)
         traj = np.loadtxt(os.path.join(out_dir, "pred_traj.txt"))
         K = np.loadtxt(os.path.join(out_dir, "pred_intrinsics.txt"))
@@ -2205,6 +2232,225 @@ def training_phases(dev):
     train_reference_phase(dev)
     return results, totals, launches, plain_run
 
+OFFLINE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                                "torch_offline", "expected")
+OFFLINE_SEED = 0
+# phase 19(b): the published sizes the offline tools run at
+DSLR_WH = (1752, 1168)          # ScanNet++ DSLR (OPENCV_FISHEYE)
+IPHONE_WH = (1920, 1440)        # ScanNet++ iPhone (OPENCV)
+RASTER_TRIANGLES = 1_000_000
+SENS_COLOR_WH, SENS_DEPTH_WH, SENS_FRAMES = (1296, 968), (640, 480), 10
+HABITAT_ENV_HW, HABITAT_CROP_WH = (1024, 2048), (512, 512)
+
+
+def write_results_dir(out_dir, n=20, hw=(256, 576), seed=0):
+    """A results directory in save_results_dir's layout (pred_traj.txt,
+    pred_intrinsics.txt, frame_*.npy / .png, conf_*.npy) of a seeded scene
+    at the slice's size, for `--offline-only` runs that have no slice."""
+    from geo4d_tpu_torch.data.images import write_png
+    from geo4d_tpu_torch.evals.trajectory import Trajectory
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    os.makedirs(out_dir)
+    poses = np.tile(np.eye(4), (n, 1, 1))
+    poses[:, 0, 3] = np.arange(n) * 0.05
+    np.savetxt(os.path.join(out_dir, "pred_traj.txt"), Trajectory.from_matrices(poses).to_tum())
+    np.savetxt(os.path.join(out_dir, "pred_intrinsics.txt"),
+               np.tile([300.0, 0, w / 2, 0, 300.0, h / 2, 0, 0, 1], (n, 1)))
+    for i in range(n):
+        np.save(os.path.join(out_dir, f"frame_{i:04d}.npy"),
+                rng.uniform(1, 5, (h, w)).astype(np.float32))
+        np.save(os.path.join(out_dir, f"conf_{i:04d}.npy"),
+                rng.uniform(0, 1, (h, w)).astype(np.float32))
+        write_png(os.path.join(out_dir, f"frame_{i:04d}.png"),
+                  rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    return out_dir
+
+
+def tessellated_room(rng, n_triangles):
+    """A box room of half-size 3, each face a grid of quads, plus small
+    random triangles inside: about n_triangles in all (half each)."""
+    k = int(np.sqrt(n_triangles / 2 / 6 / 2))
+    g = np.linspace(-3, 3, k + 1)
+    u, v = np.meshgrid(g, g)
+    a = (np.arange(k)[:, None] * (k + 1) + np.arange(k)[None]).ravel()   # quads' corners
+    tri = np.concatenate([np.stack([a, a + 1, a + k + 2], -1),
+                          np.stack([a, a + k + 2, a + k + 1], -1)])
+    verts, faces = [], []
+    for axis in range(3):
+        for side in (-3.0, 3.0):
+            p = np.zeros(((k + 1) ** 2, 3))
+            p[:, axis] = side
+            p[:, (axis + 1) % 3], p[:, (axis + 2) % 3] = u.ravel(), v.ravel()
+            faces.append(tri + sum(len(x) for x in verts))
+            verts.append(p)
+    n_extra = n_triangles - sum(len(f) for f in faces)
+    extra = rng.uniform(-2.5, 2.5, (n_extra, 1, 3)) + rng.normal(0, 0.02, (n_extra, 3, 3))
+    faces.append(sum(len(x) for x in verts) + np.arange(3 * n_extra).reshape(-1, 3))
+    verts.append(extra.reshape(-1, 3))
+    return np.concatenate(verts).astype(np.float32), np.concatenate(faces).astype(np.int32)
+
+
+def offline_phase(results_dir, work):
+    """Phase 19: the offline tools and the viewer on the card's host, without
+    OpenCV, Pillow, h5py or JAX. (a) every tool on the seeded raw data of
+    tools/offline_check.py against the JAX package's committed outputs, and
+    the HDF5 readers' errors; (b) each tool once at its published size, timed
+    on the host clock, and the raster library against its numpy version;
+    (c) the viewer over the slice's results directory through a stdlib
+    websocket client."""
+    import importlib.util
+
+    from geo4d_tpu_torch.data import habitat_prep, jpeg, preprocess, preprocess_train
+    from geo4d_tpu_torch.data import sens_reader
+    from geo4d_tpu_torch.geometry import raster
+    from geo4d_tpu_torch.tools import offline_check as oc
+    from geo4d_tpu_torch.viz.server import ViewerServer
+    from geo4d_tpu_torch.viz.visualizer import export_html, load_results_dir
+
+    record = {}
+    t0 = time.perf_counter()
+    jpeg.build(jpeg.ENCODER_SOURCE)
+    record["jpeg_encoder_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raster.build()
+    record["raster_build_s"] = time.perf_counter() - t0
+
+    # (a) parity with the committed JAX outputs
+    raw, out = os.path.join(work, "offline_raw"), os.path.join(work, "offline_out")
+    man = oc.write_raw(raw, OFFLINE_SEED)
+    record["parity_s"] = {}
+    for case in oc.CASES:
+        record["parity_s"][case] = oc.run_case(case, raw, out, man, seed=OFFLINE_SEED)
+        stats = oc.compare_trees(os.path.join(out, case), os.path.join(OFFLINE_FIXTURES, case))
+        print(f"offline: {case}: the port's outputs equal the JAX package's committed ones "
+              f"({json.dumps(stats)}; PNG pixels, JPEG/EXR bytes, arrays within "
+              f"{oc.RTOL} rel + {oc.ATOL})", flush=True)
+    had_h5py = importlib.util.find_spec("h5py") is not None
+    saved = sys.modules.get("h5py")
+    if had_h5py:                    # the check is of the error, so h5py is hidden
+        sys.modules["h5py"] = None
+    try:
+        try:
+            preprocess_train.megadepth_process_view(raw, "a.jpg", None, None, work)
+            raise AssertionError("offline: MegaDepth ran without h5py")
+        except RuntimeError as e:
+            if str(e) != "megadepth depth maps need h5py":
+                raise
+            megadepth_err = str(e)
+        try:
+            preprocess.prepare_nyuv2(os.path.join(work, "nyu"))
+            raise AssertionError("offline: prepare_nyuv2 ran without h5py")
+        except ImportError as e:
+            if "h5py" not in str(e):
+                raise
+            nyu_err = f"{type(e).__name__}: {e}"
+    finally:
+        if had_h5py:
+            sys.modules.pop("h5py")
+            if saved is not None:
+                sys.modules["h5py"] = saved
+    print(f"offline: h5py {'present (hidden for the check)' if had_h5py else 'absent'}; "
+          f"prepare_megadepth raises RuntimeError: {megadepth_err}; prepare_nyuv2 raises "
+          f"{nyu_err}", flush=True)
+
+    # (b) published sizes
+    rng = np.random.default_rng(OFFLINE_SEED)
+    for name, model, (w, h), params in (
+            ("dslr_fisheye", "OPENCV_FISHEYE", DSLR_WH,
+             [789.6, 790.1, 876.3, 583.7, 0.025, -0.011, 0.002, -0.0005]),
+            ("iphone", "OPENCV", IPHONE_WH, [1440.2, 1441.0, 960.4, 719.8, 0.05, -0.07,
+                                             0.0003, -0.0002])):
+        rgb = oc.smooth_image(rng, h, w)
+        mask = np.full((h, w), 255, np.uint8)
+        mask[100:300, 200:500] = 0
+        t0 = time.perf_counter()
+        _, _, new_K, rgb_u, mask_u = preprocess_train.scannetpp_undistort(
+            [model, w, h, *params], rgb, mask)
+        record[f"undistort_{name}_s"] = time.perf_counter() - t0
+        if rgb_u.shape != (h, w, 3) or mask_u.shape != (h, w) or not (mask_u == 255).any():
+            raise AssertionError(f"offline: undistort {name}: {rgb_u.shape} {mask_u.shape}")
+    verts, faces = tessellated_room(rng, RASTER_TRIANGLES)
+    K = np.array([[789.6, 0, DSLR_WH[0] / 2], [0, 790.1, DSLR_WH[1] / 2], [0, 0, 1]])
+    t0 = time.perf_counter()
+    depth = raster.render_mesh_depth(verts, faces, K, np.eye(4), DSLR_WH[::-1])
+    record["raster_1m_s"] = time.perf_counter() - t0
+    record["raster_covered"] = float((depth > 0).mean())
+    if depth.shape != DSLR_WH[::-1] or record["raster_covered"] < 0.5:
+        raise AssertionError(f"offline: raster at {DSLR_WH}: covered {record['raster_covered']}")
+    small_v, small_f = oc.room_mesh(np.random.default_rng(OFFLINE_SEED))
+    worst = 0.0
+    for R, t in oc.raster_cameras(OFFLINE_SEED):
+        c2w = np.eye(4)
+        c2w[:3, :3], c2w[:3, 3] = R, t
+        lib = raster.render_mesh_depth(small_v, small_f, oc.RASTER_K, c2w, oc.RASTER_HW)
+        plain = raster.raster_depth_plain(small_v, small_f, oc.RASTER_K, c2w, oc.RASTER_HW)
+        edge = float(((lib > 0) != (plain > 0)).mean())
+        both = (lib > 0) & (plain > 0)
+        rel = float((np.abs(lib[both] - plain[both]) / plain[both]).max())
+        worst = max(worst, rel)
+        if edge > oc.RASTER_EDGE_SHARE or rel > oc.RASTER_REL:
+            raise AssertionError(f"offline: raster library vs numpy: edge share {edge}, "
+                                 f"rel {rel}")
+    record["raster_vs_plain_rel"] = worst
+    sens_path = os.path.join(work, "big.sens")
+    oc.write_sens(sens_path, rng, n=SENS_FRAMES, color_hw=SENS_COLOR_WH[::-1],
+                  depth_hw=SENS_DEPTH_WH[::-1])
+    for tag, size in (("sens_full", None), ("sens_640x480", SENS_DEPTH_WH[::-1])):
+        t0 = time.perf_counter()
+        n = sens_reader.export_scene(sens_path, os.path.join(work, tag), image_size=size)
+        record[f"{tag}_s_per_frame"] = (time.perf_counter() - t0) / n
+    env_color = oc.smooth_image(rng, *HABITAT_ENV_HW)
+    env_dist = rng.uniform(1, 8, HABITAT_ENV_HW).astype(np.float32)
+    cw, ch = HABITAT_CROP_WH
+    f_px = cw / 2 / np.tan(np.radians(60.0) / 2)
+    view = {"camera_intrinsics": [[f_px, 0, cw / 2 - 0.5], [0, f_px, ch / 2 - 0.5], [0, 0, 1]],
+            "size": [cw, ch], "R_cam2world": np.eye(3).tolist(), "t_cam2world": [0.0, 0, 0]}
+    meta = os.path.join(work, "habitat_metadata.json")
+    with open(meta, "w") as f:
+        json.dump({"view_batches": {"b0": {"v0": view}}}, f)
+    t0 = time.perf_counter()
+    habitat_prep.preprocess_metadata(meta, lambda pos: (env_color, env_dist),
+                                     os.path.join(work, "habitat"), crop_resolution=(cw, ch))
+    record["habitat_crop_512_s"] = time.perf_counter() - t0
+
+    # (c) the viewer over the results directory
+    t0 = time.perf_counter()
+    clouds, _ = load_results_dir(results_dir, downsample=2, conf_thr=1e-3)
+    record["viewer_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    html = export_html(results_dir, os.path.join(work, "viewer.html"))
+    record["viewer_html_s"] = time.perf_counter() - t0
+    record["viewer_html_bytes"] = os.path.getsize(html)
+    t0 = time.perf_counter()
+    srv = ViewerServer(results_dir, port=0).start()
+    try:
+        record["viewer_server_start_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        meta_msg, frames = oc.fetch_viewer(srv.port)
+        record["viewer_fetch_s"] = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    n_frames = json.loads(meta_msg)["n_frames"]
+    counts = [struct.unpack("<II", frames[i][:8])[1] for i in range(n_frames)]
+    want = [min(len(p), srv.store.max_points) for p, _ in clouds]
+    if n_frames != len(clouds) or counts != want:
+        raise AssertionError(f"offline: the viewer sent {n_frames} frames of {counts} points, "
+                             f"load_results_dir gives {len(clouds)} of {want}")
+    record["viewer_frames"], record["viewer_points"] = n_frames, sum(counts)
+    print("offline " + json.dumps(record), flush=True)
+    return record
+
+
+
+def check_foreign():
+    foreign = sorted(m for m, mod in sys.modules.items()
+                     if mod is not None and m.split(".")[0] in FOREIGN_ROOTS)
+    if foreign:
+        raise AssertionError(f"the port imported JAX, OpenCV, Pillow, h5py or the JAX package: "
+                             f"{foreign[:5]}")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of geo4d_tpu_torch on one GPU")
@@ -2216,6 +2462,8 @@ def main() -> int:
                     help="phases 1-2 and the long-sequence phase (18) only")
     ap.add_argument("--parallel-only", action="store_true",
                     help="phases 1-2, train_repeat (15) and the parallel phase (17) only")
+    ap.add_argument("--offline-only", action="store_true",
+                    help="phases 1-2 and the offline tools' phase (19) only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2253,6 +2501,12 @@ def main() -> int:
         torch.backends.cudnn.benchmark = False
         parallel_phase(dev, train_repeat_phase(dev))
         return 0
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, work, True)
+    if args.offline_only:
+        offline_phase(write_results_dir(os.path.join(work, "results")), work)
+        check_foreign()
+        return 0
     if args.longseq_only:
         from geo4d_tpu_torch.cli.common import prepare_inference_params
         from geo4d_tpu_torch.models.presets import flagship, init_random_
@@ -2268,7 +2522,8 @@ def main() -> int:
         return 0
     with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         results = kernel_phase(dev)
-    launches, by_shape, model, text_ctx, uncond_text_ctx, scene = slice_phase(dev)
+    results_dir = os.path.join(work, "slice_results")
+    launches, by_shape, model, text_ctx, uncond_text_ctx, scene = slice_phase(dev, results_dir)
     evaluate_phase(dev, model, text_ctx, uncond_text_ctx, scene)
     del scene
     checked = resolutions_phase(dev, model, text_ctx)
@@ -2281,6 +2536,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     inputs_phase(dev)
+    offline_phase(results_dir, work)
     torch.cuda.empty_cache()
     if args.shapes_to:
         with open(args.shapes_to, "w") as f:
@@ -2295,11 +2551,7 @@ def main() -> int:
     bwd_results, bwd_totals, bwd_launches, plain_run = training_phases(dev)
     parallel_phase(dev, plain_run)
 
-    foreign = sorted(m for m, mod in sys.modules.items()
-                     if mod is not None and m.split(".")[0] in FOREIGN_ROOTS)
-    if foreign:
-        raise AssertionError(f"the port imported JAX, OpenCV, Pillow or the JAX package: "
-                             f"{foreign[:5]}")
+    check_foreign()
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from geo4d_tpu_torch.data.images import bicubic_resize, lanczos_resize
+from geo4d_tpu_torch.data.images import bicubic_resize, lanczos_resize, resize_nearest
 
 
 def opencv_to_colmap_intrinsics(K: np.ndarray) -> np.ndarray:
@@ -45,15 +45,10 @@ def _resize_image(img: np.ndarray, wh: Tuple[int, int], down: bool) -> np.ndarra
 
 
 def _resize_depth(depth: np.ndarray, wh: Tuple[int, int]) -> np.ndarray:
-    """Nearest neighbour as cv2.resize(..., INTER_NEAREST) picks it: output
-    pixel x takes source floor(x * (1 / (out_w / in_w))), clamped to the
-    image; depth must not be interpolated across edges. A trailing channel
-    of one is dropped, as OpenCV drops it."""
-    h, w = depth.shape[:2]
-    out_w, out_h = (int(v) for v in wh)
-    xs = np.minimum(np.floor(np.arange(out_w) * (1.0 / (out_w / w))).astype(np.int64), w - 1)
-    ys = np.minimum(np.floor(np.arange(out_h) * (1.0 / (out_h / h))).astype(np.int64), h - 1)
-    out = depth[ys][:, xs]
+    """Nearest neighbour as cv2.resize(..., INTER_NEAREST) picks it
+    (data/images.py::resize_nearest); depth must not be interpolated across
+    edges. A trailing channel of one is dropped, as OpenCV drops it."""
+    out = resize_nearest(depth, wh)
     return out[..., 0] if out.ndim == 3 and out.shape[2] == 1 else out
 
 

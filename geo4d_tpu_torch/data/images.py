@@ -7,8 +7,10 @@ zlib.
                           up, average, Paeth) undone; 16-bit samples are
                           big-endian in the file. Returns (H, W) for
                           grayscale, else (H, W, C), as uint8 or uint16.
-  write_png / encode_png  8-bit grayscale (H, W) or RGB (H, W, 3), filter 0,
-                          one IDAT chunk.
+  write_png / encode_png  8-bit grayscale (H, W), gray + alpha (H, W, 2), RGB
+                          (H, W, 3) or RGBA (H, W, 4), or 16-bit grayscale
+                          (H, W) (big-endian samples); filter 0, one IDAT
+                          chunk. Pillow and OpenCV read back the same pixels.
   write_gif / encode_gif  an animated GIF89a of palette-index frames with one
                           global 256-colour palette, looping; lossless (the
                           LZW stream holds every pixel as a literal code).
@@ -22,6 +24,16 @@ zlib.
                           cubic convolution kernel with a = -0.5, support 2
                           x max(scale, 1)), bit for bit Image.BICUBIC.
 Both also take a grayscale (H, W) image (Pillow's mode L).
+  remap                   OpenCV's cv2.remap with float32 maps: bilinear or
+                          nearest (half to even), uint8 or float32 images,
+                          borders REFLECT_101, CONSTANT and WRAP, computed as
+                          OpenCV 5 computes them (float32 lerps with fused
+                          multiply-adds, no 1/32-pixel grid).
+  resize_area             cv2.resize(..., INTER_AREA) of uint8 images when
+                          shrinking: OpenCV's float32 area weights, summed in
+                          its order, rounded half to even.
+  resize_nearest          cv2.resize(..., INTER_NEAREST): source index
+                          floor(x * (in / out)), clamped.
 """
 
 from __future__ import annotations
@@ -117,16 +129,23 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
+_COLOUR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
+
+
 def encode_png(img: np.ndarray) -> bytes:
-    """PNG bytes of an 8-bit grayscale (H, W) or RGB (H, W, 3) image."""
+    """PNG bytes of a uint8 (H, W), (H, W, 2), (H, W, 3) or (H, W, 4) image
+    (gray, gray + alpha, RGB, RGBA) or a uint16 (H, W) grayscale one."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
-        raise ValueError(f"encode_png takes uint8 (H, W) or (H, W, 3), got {img.dtype} "
-                         f"{img.shape}")
+    ch = 1 if img.ndim == 2 else img.shape[2] if img.ndim == 3 else 0
+    if not ((img.dtype == np.uint8 and ch in _COLOUR_TYPE)
+            or (img.dtype == np.uint16 and img.ndim == 2)):
+        raise ValueError(f"encode_png takes uint8 (H, W[, 2|3|4]) or uint16 (H, W), got "
+                         f"{img.dtype} {img.shape}")
     h, w = img.shape[:2]
-    rows = np.zeros((h, 1 + img[0].size), np.uint8)     # filter byte 0 on every row
-    rows[:, 1:] = img.reshape(h, -1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2, 0, 0, 0)
+    data = img.astype(">u2").view(np.uint8) if img.dtype == np.uint16 else img
+    rows = np.zeros((h, 1 + data[0].size), np.uint8)     # filter byte 0 on every row
+    rows[:, 1:] = data.reshape(h, -1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8 * img.itemsize, _COLOUR_TYPE[ch], 0, 0, 0)
     return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
 
@@ -273,3 +292,144 @@ def bicubic_resize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """Resize uint8 (H, W, 3) or (H, W) to size (W, H) with Pillow's BICUBIC
     filter, bit for bit."""
     return _resample(img, size, BICUBIC_SUPPORT, _bicubic_weights)
+
+
+BORDERS = ("reflect101", "constant", "wrap")
+
+
+def _border_index(i: np.ndarray, n: int, border: str) -> np.ndarray:
+    """Source indices of an axis of n pixels under OpenCV's border rule;
+    for "constant", out-of-range indices are left as they are."""
+    if border == "wrap":
+        return np.mod(i, n)
+    if border == "reflect101":
+        if n == 1:
+            return np.zeros_like(i)
+        i = np.mod(i, 2 * (n - 1))
+        return np.where(i >= n, 2 * (n - 1) - i, i)
+    return i
+
+
+def _fetch(img: np.ndarray, yi: np.ndarray, xi: np.ndarray, border: str,
+           border_value: float) -> np.ndarray:
+    h, w = img.shape[:2]
+    yb, xb = _border_index(yi, h, border), _border_index(xi, w, border)
+    if border != "constant":
+        return img[yb, xb].astype(np.float32)
+    inside = (yb >= 0) & (yb < h) & (xb >= 0) & (xb < w)
+    v = img[np.clip(yb, 0, h - 1), np.clip(xb, 0, w - 1)].astype(np.float32)
+    v[~inside] = border_value
+    return v
+
+
+def _fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """float32 a * b + c rounded once (the product of two float32 values is
+    exact in float64)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def remap(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray,
+          interpolation: str = "linear", border: str = "constant",
+          border_value: float = 0.0) -> np.ndarray:
+    """cv2.remap(img, map_x, map_y, INTER_LINEAR | INTER_NEAREST,
+    borderMode=BORDER_REFLECT_101 | BORDER_CONSTANT | BORDER_WRAP,
+    borderValue=border_value) for a uint8 or float32 (H, W) or (H, W, C)
+    image and float32 (h, w) maps. Bilinear: x0 = floor(x), a = x - x0, the
+    four taps fetched under the border rule (a tap out of range takes
+    border_value under "constant"), then a + ax (b - a) along x and along y
+    in float32 with fused multiply-adds; uint8 rounds half to even and
+    saturates. Nearest: the tap at x rounded half to even."""
+    if interpolation not in ("linear", "nearest") or border not in BORDERS:
+        raise ValueError(f"remap: interpolation {interpolation!r}, border {border!r}")
+    if img.dtype not in (np.uint8, np.float32):
+        raise ValueError(f"remap takes uint8 or float32 images, got {img.dtype}")
+    mx = np.asarray(map_x, np.float32)
+    my = np.asarray(map_y, np.float32)
+    if interpolation == "nearest":
+        out = _fetch(img, np.rint(my).astype(np.int64), np.rint(mx).astype(np.int64), border,
+                     border_value)
+    else:
+        fx, fy = np.floor(mx), np.floor(my)
+        x0, y0 = fx.astype(np.int64), fy.astype(np.int64)
+        ax, ay = mx - fx, my - fy
+        if img.ndim == 3:
+            ax, ay = ax[..., None], ay[..., None]
+        v00, v01 = _fetch(img, y0, x0, border, border_value), _fetch(img, y0, x0 + 1, border,
+                                                                     border_value)
+        v10, v11 = _fetch(img, y0 + 1, x0, border, border_value), _fetch(img, y0 + 1, x0 + 1,
+                                                                         border, border_value)
+        top, bottom = _fma(ax, v01 - v00, v00), _fma(ax, v11 - v10, v10)
+        out = _fma(ay, bottom - top, top)
+    if img.dtype == np.uint8:
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out
+
+
+def _area_weights(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """OpenCV's computeResizeAreaTab: the (output, source, float32 weight)
+    entries of one axis, in its order (a partial first cell, whole cells,
+    a partial last cell, per output pixel)."""
+    scale = 1.0 / (n_out / n_in)
+    dst, src, wgt = [], [], []
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s2 = min(math.floor(f2), n_in - 1)
+        s1 = min(math.ceil(f1), s2)
+        if s1 - f1 > 1e-3:
+            dst.append(d), src.append(s1 - 1), wgt.append((s1 - f1) / cell)
+        for s in range(s1, s2):
+            dst.append(d), src.append(s), wgt.append(1.0 / cell)
+        if f2 - s2 > 1e-3:
+            dst.append(d), src.append(s2), wgt.append(min(min(f2 - s2, 1.0), cell) / cell)
+    return np.array(dst), np.array(src), np.array(wgt, np.float32)
+
+
+def _area_sum(x: np.ndarray, n_out: int, axis: int, first_product: bool) -> np.ndarray:
+    """Sum weighted source lines into n_out output lines along `axis` in
+    float32, each output's terms added in table order."""
+    dst, src, wgt = _area_weights(x.shape[axis], n_out)
+    x = np.moveaxis(x, axis, 0)
+    out = np.zeros((n_out,) + x.shape[1:], np.float32)
+    rank = np.arange(len(dst)) - np.searchsorted(dst, dst)   # position within its output
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        term = x[src[sel]] * wgt[sel].reshape((-1,) + (1,) * (x.ndim - 1))
+        out[dst[sel]] = term if (r == 0 and first_product) else out[dst[sel]] + term
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_area(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(img, size (W, H), interpolation=INTER_AREA) of a uint8
+    (H, W) or (H, W, C) image to a smaller or equal size. Integer factors
+    average each cell ((sum + 2) >> 2 at 2x2, else the float32 mean rounded
+    half to even); other factors weight each source pixel by its overlap
+    with the output cell, rows summed first, as OpenCV does."""
+    out_w, out_h = (int(v) for v in size)
+    h, w = img.shape[:2]
+    if img.dtype != np.uint8 or out_w > w or out_h > h or out_w < 1 or out_h < 1:
+        raise ValueError(f"resize_area shrinks uint8 images, got {img.dtype} {img.shape} -> "
+                         f"({out_h}, {out_w}); INTER_AREA enlarging is not supported")
+    sx, sy = w / out_w, h / out_h
+    if sx == int(sx) and sy == int(sy):
+        ix, iy = int(sx), int(sy)
+        cells = img.astype(np.int64).reshape((out_h, iy, out_w, ix) + img.shape[2:])
+        total = cells.sum(axis=(1, 3))
+        if ix == 2 and iy == 2:
+            return ((total + 2) >> 2).astype(np.uint8)
+        mean = total.astype(np.float32) * np.float32(1.0 / (ix * iy))
+        return np.clip(np.rint(mean), 0, 255).astype(np.uint8)
+    rows = _area_sum(img.astype(np.float32), out_w, 1, first_product=False)
+    out = _area_sum(rows, out_h, 0, first_product=True)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def resize_nearest(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(img, size (W, H), interpolation=INTER_NEAREST): output
+    pixel x takes source floor(x * (1 / (out_w / in_w))), clamped."""
+    h, w = img.shape[:2]
+    out_w, out_h = (int(v) for v in size)
+    xs = np.minimum(np.floor(np.arange(out_w) * (1.0 / (out_w / w))).astype(np.int64), w - 1)
+    ys = np.minimum(np.floor(np.arange(out_h) * (1.0 / (out_h / h))).astype(np.int64), h - 1)
+    return img[ys][:, xs]

@@ -1,53 +1,50 @@
-"""JPEG frames without Pillow: csrc/jpeg_decode.cpp (a baseline and
-extended-sequential Huffman decoder in host C++), built with g++ at first
-use into build/geo4d_tpu_torch/ and loaded with ctypes.
+"""JPEG files without Pillow: a decoder and an encoder in host C++
+(csrc/jpeg_decode.cpp, csrc/jpeg_encode.cpp), built with g++ at first use
+into build/geo4d_tpu_torch/ and loaded with ctypes.
 
-It computes what Pillow's libjpeg-turbo computes by default (the integer
-islow IDCT, fancy chroma upsampling, libjpeg's fixed-point YCbCr -> RGB), so
-`read_jpeg(path)` equals `np.asarray(Image.open(path))` pixel for pixel.
-Progressive, lossless and arithmetic-coded files raise a ValueError that
-names the file and the mode. A failed build raises; nothing falls back.
+The decoder computes what Pillow's libjpeg-turbo computes by default (the
+integer islow IDCT, fancy chroma upsampling, libjpeg's fixed-point YCbCr ->
+RGB), so `read_jpeg(path)` equals `np.asarray(Image.open(path))` pixel for
+pixel. Progressive, lossless and arithmetic-coded files raise a ValueError
+that names the file and the mode.
+
+The encoder writes libjpeg-turbo's baseline defaults (JFIF 1.01, the Annex K
+tables scaled by quality, 4:2:0, islow FDCT, the standard Huffman tables),
+so `encode_jpeg(rgb, q)` equals the bytes of Pillow's `Image.save(...,
+quality=q)` and of OpenCV's `imwrite` at IMWRITE_JPEG_QUALITY q (95 when
+OpenCV is given none). A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "jpeg_decode.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "geo4d_tpu_torch"
+from geo4d_tpu_torch.core import hostlib
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCE = CSRC / "jpeg_decode.cpp"
+ENCODER_SOURCE = CSRC / "jpeg_encode.cpp"
+BUILD_DIR = hostlib.BUILD_DIR
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 _ERR_LEN = 512
+# Pillow's quality when none is given (libjpeg's default)
+DEFAULT_QUALITY = 75
 
 
-def library_path() -> Path:
-    """The library's path, named by a hash of the source and the flags (an
-    edited source builds anew)."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes())
-    return BUILD_DIR / f"libjpeg_decode_{h.hexdigest()[:16]}.so"
+_LIBRARIES = {SOURCE: ("libjpeg_decode", "the JPEG decoder"),
+              ENCODER_SOURCE: ("libjpeg_encode", "the JPEG encoder")}
 
 
-def build() -> Path:
-    """Compile the decoder with g++ unless a library of the same source and
-    flags exists; raises with the compiler's output if it fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise RuntimeError(f"the JPEG decoder could not be built (g++ {proc.returncode}):\n"
-                           f"{proc.stderr[-3000:]}")
-    os.replace(tmp, out)          # atomic: a concurrent loader never sees half a file
-    return out
+def build(source: Path = SOURCE) -> Path:
+    """Compile the decoder (or, given ENCODER_SOURCE, the encoder) with g++
+    unless a library of the same source and flags exists; raises with the
+    compiler's output if it fails."""
+    stem, what = _LIBRARIES[source]
+    return hostlib.build(source, stem, CXX_FLAGS, BUILD_DIR, what)
 
 
 @functools.cache
@@ -58,6 +55,16 @@ def _library() -> ctypes.CDLL:
     lib.jd_info.argtypes = [p, size, ip, ip, ip, ctypes.c_char_p, i]
     lib.jd_decode.argtypes = [p, size, p, ctypes.c_char_p, i]
     lib.jd_info.restype = lib.jd_decode.restype = i
+    return lib
+
+
+@functools.cache
+def _encoder() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(ENCODER_SOURCE)))
+    i = ctypes.c_int
+    lib.je_encode.argtypes = [ctypes.c_void_p, i, i, i, i, ctypes.c_void_p, ctypes.c_int64,
+                              ctypes.c_char_p, i]
+    lib.je_encode.restype = ctypes.c_int64
     return lib
 
 
@@ -79,3 +86,31 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
 def read_jpeg(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_jpeg(f.read(), path)
+
+
+def encode_jpeg(img: np.ndarray, quality: int = DEFAULT_QUALITY) -> bytes:
+    """Baseline JPEG bytes of a uint8 RGB (H, W, 3) or grayscale (H, W)
+    image, as Pillow writes them at this quality."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_jpeg takes uint8 (H, W) or (H, W, 3), got {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else 3
+    lib = _encoder()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    cap = 4096 + img.size        # most files fit; a larger one is asked for again
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.je_encode(img.ctypes.data, w, h, ch, int(quality), out.ctypes.data, cap,
+                          err, _ERR_LEN)
+        if n < 0:
+            raise ValueError(err.value.decode())
+        if n <= cap:
+            return out[:n].tobytes()
+        cap = n
+
+
+def write_jpeg(path: str, img: np.ndarray, quality: int = DEFAULT_QUALITY) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_jpeg(img, quality))

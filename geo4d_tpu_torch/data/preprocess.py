@@ -10,14 +10,16 @@ sintel_get_dynamics.py), without Pillow:
                    pose_90.txt}
   prepare_kitti    val_selection_cropped gathered per sequence into
                    image_gathered/ and depth_gathered/
+  prepare_nyuv2    official/*.h5 -> nyu_images/*.png, nyu_depths/*.npy and
+                   normalised nyu_depth_imgs/*.png (reads HDF5 through h5py,
+                   imported where it is needed, as the JAX package does)
   read_flo         a Middlebury .flo optical-flow file
   sintel_get_dynamics    per-frame dynamic labels of a Sintel sequence
                    (GT flow against the rigid flow of GT depth and cameras),
                    written as PNG by data/images.py
   compute_dynamic_masks  the same test on tensors, on their device
 
-The prepare_* functions are plain file operations. (The NYUv2 preparation
-reads HDF5 and is not part of the port.)
+The prepare_* functions are plain file operations.
 """
 
 from __future__ import annotations
@@ -120,6 +122,30 @@ def prepare_kitti(root: str):
             out = os.path.join(root, dst, m.group(1) if m else "seq")
             os.makedirs(out, exist_ok=True)
             shutil.copy2(f, os.path.join(out, name))
+
+
+def prepare_nyuv2(root: str):
+    """NYUv2 val split: official/*.h5 -> nyu_images/*.png + nyu_depths/*.npy
+    + normalized nyu_depth_imgs/*.png (datasets_preprocess/
+    prepare_nyuv2.py:1-84 semantics)."""
+    import h5py
+
+    src = os.path.join(root, "official")
+    img_dir = os.path.join(root, "nyu_images")
+    dep_dir = os.path.join(root, "nyu_depths")
+    dimg_dir = os.path.join(root, "nyu_depth_imgs")
+    for d in (img_dir, dep_dir, dimg_dir):
+        os.makedirs(d, exist_ok=True)
+    for path in sorted(glob.glob(os.path.join(src, "*.h5"))):
+        base = os.path.splitext(os.path.basename(path))[0]
+        with h5py.File(path, "r") as h5:
+            depth = np.asarray(h5["depth"])
+            rgb = np.transpose(np.asarray(h5["rgb"]), (1, 2, 0))
+        write_png(os.path.join(img_dir, f"{base}.png"), rgb.astype(np.uint8))
+        np.save(os.path.join(dep_dir, f"{base}.npy"), depth)
+        lo, hi = depth.min(), depth.max()
+        norm = (depth - lo) / max(hi - lo, 1e-12)
+        write_png(os.path.join(dimg_dir, f"{base}.png"), (norm * 255).astype(np.uint8))
 
 
 def read_flo(path: str) -> np.ndarray:

@@ -6,8 +6,15 @@ loading (the same uint8 frames), the epoch-seeded batch sampler (the
 same plans), the loader's collation and worker split, and the intrinsics
 and crop geometry of data/cropping.py (its resizes, which the original does
 through Pillow and OpenCV, are held in tests/test_torch_data_loader.py). The results exporter is held to the
-original in tests/test_torch_reconstruct.py."""
+original in tests/test_torch_reconstruct.py. The offline tools' and the
+viewer's numpy-only functions are kept verbatim: their code (docstrings
+aside) is the original's, statement for statement; what they compute is held
+to the original in tests/test_torch_preprocess_train.py and
+tests/test_torch_viz.py."""
 
+import ast
+import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -239,3 +246,52 @@ def test_crop_geometry_matches_jax(case):
                     assert g is None
                 else:
                     np.testing.assert_array_equal(g, w)
+
+
+# functions and classes of the offline tools and the viewer kept verbatim
+VERBATIM = {
+    "data.habitat_prep": ["PerspectiveCamera", "camera_intrinsics_from_hfov",
+                          "colmap_to_opencv_intrinsics", "crop_remap_coords", "envmap_pointmap",
+                          "equirect_project", "equirect_unproject", "make_habitat_render_fn",
+                          "opencv_to_colmap_intrinsics", "perspective_project",
+                          "perspective_unproject", "pixel_grid"],
+    "viz.server": ["ViewerServer", "main", "ws_accept_key", "ws_decode", "ws_encode",
+                   "_PLAYER_PAGE"],
+    "viz.visualizer": ["export_html", "main", "_HTML_TEMPLATE"],
+    "data.sens_reader": ["SensFrame", "SensHeader", "_read_mat4", "iter_frames", "main",
+                         "read_header"],
+    "data.preprocess_train": ["arkit_scene_orientation", "arkitscenes_concat_metadata",
+                              "co3d_get_set_list", "colmap_qt_to_w2c", "load_blendedmvs_cam",
+                              "load_megadepth_poses", "load_pfm", "ndc_to_pinhole_intrinsics",
+                              "object_centric_crop", "prepare_blendedmvs",
+                              "prepare_staticthings3d", "pytorch3d_camera_to_opencv_pose",
+                              "read_arkit_traj", "read_float3", "scannetpp_concat_metadata",
+                              "scannetpp_frame_number", "waymo_extract_frames",
+                              "waymo_make_video_pairs", "wildrgbd_get_set_list"],
+}
+
+
+def _code(module) -> dict:
+    """Top-level definitions and assignments of a module's source, as AST
+    dumps without docstrings (formatting and comments do not count)."""
+    out = {}
+    for node in ast.parse(inspect.getsource(module)).body:
+        for n in ast.walk(node):
+            if (isinstance(n, (ast.FunctionDef, ast.ClassDef)) and n.body
+                    and isinstance(n.body[0], ast.Expr)
+                    and isinstance(n.body[0].value, ast.Constant)
+                    and isinstance(n.body[0].value.value, str)):
+                n.body = n.body[1:] or [ast.Pass()]
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
+            out[node.targets[0].id] = ast.dump(node.value)
+    return out
+
+
+@pytest.mark.parametrize("module", list(VERBATIM))
+def test_offline_and_viewer_copies_are_verbatim(module):
+    port = _code(importlib.import_module(f"geo4d_tpu_torch.{module}"))
+    jax = _code(importlib.import_module(f"geo4d_tpu.{module}"))
+    for name in VERBATIM[module]:
+        assert port[name] == jax[name], f"{module}.{name} differs from the original"

@@ -191,7 +191,7 @@ def test_png_refuses_interlaced_palette_and_other_depths(tmp_path):
     with pytest.raises(ValueError, match="bits.png: PNG bit depth 1"):
         images.read_png(path)
     with pytest.raises(ValueError, match="encode_png takes uint8"):
-        images.encode_png(np.zeros((4, 4), np.uint16))
+        images.encode_png(np.zeros((4, 4, 3), np.uint16))     # 16-bit gray is written
 
 
 @pytest.mark.parametrize("src,dst", [((436, 1024), (576, 256)), ((48, 96), (576, 256)),

@@ -151,3 +151,72 @@ def test_new_modules_run_with_jax_opencv_and_pillow_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+OFFLINE = r"""
+import importlib.abc, json, os, sys, tempfile
+BLOCK = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "geo4d_tpu", "h5py")
+
+class Blocker(importlib.abc.MetaPathFinder):
+    # importing any of BLOCK raises (a finder, not None in sys.modules: scipy
+    # looks jax up in sys.modules)
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError(f"No module named {name!r} (blocked)")
+
+sys.meta_path.insert(0, Blocker())
+import numpy as np
+import geo4d_tpu_torch
+from geo4d_tpu_torch.tools import offline_check as oc
+from geo4d_tpu_torch.data import preprocess, preprocess_train
+from geo4d_tpu_torch.pipeline.export import save_results_dir
+from geo4d_tpu_torch.viz.visualizer import export_html, load_results_dir
+
+with tempfile.TemporaryDirectory() as tmp:
+    raw, out = os.path.join(tmp, "raw"), os.path.join(tmp, "out")
+    man = oc.write_raw(raw, seed=1)
+    for case in oc.CASES:
+        oc.run_case(case, raw, out, man, seed=1)
+        assert oc.list_tree(os.path.join(out, case)), case
+    # the HDF5 readers raise the JAX package's errors
+    try:
+        preprocess_train.megadepth_process_view(raw, "a.jpg", None, None, tmp)
+        raise AssertionError("megadepth ran without h5py")
+    except RuntimeError as e:
+        assert str(e) == "megadepth depth maps need h5py", e
+    try:
+        preprocess.prepare_nyuv2(tmp)
+        raise AssertionError("nyuv2 ran without h5py")
+    except ImportError as e:
+        assert "h5py" in str(e), e
+    # the viewer over a results directory
+    res = os.path.join(tmp, "res")
+    os.makedirs(res)
+    np.savetxt(os.path.join(res, "pred_traj.txt"), [[i, 0.1 * i, 0, 0, 0, 0, 0, 1] for i in range(2)])
+    np.savetxt(os.path.join(res, "pred_intrinsics.txt"), [[12, 0, 5, 0, 12, 4, 0, 0, 1]] * 2)
+    for i in range(2):
+        np.save(os.path.join(res, f"frame_{i:04d}.npy"), np.full((8, 10), 2.0 + i, np.float32))
+        oc.write_png(os.path.join(res, f"frame_{i:04d}.png"), np.zeros((8, 10, 3), np.uint8))
+    clouds, poses = load_results_dir(res)
+    assert len(clouds) == 2 and os.path.exists(export_html(res))
+    srv = geo4d_tpu_torch.ViewerServer(res, port=0).start()
+    try:
+        meta, frames = oc.fetch_viewer(srv.port)
+        assert json.loads(meta)["n_frames"] == 2 and len(frames) == 2
+    finally:
+        srv.stop()
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
+print("ok")
+"""
+
+
+def test_offline_tools_run_with_jax_opencv_pillow_and_h5py_blocked():
+    """Every offline tool of the port on seeded raw data, the HDF5 readers'
+    errors, and the viewer (load, HTML export, websocket server), in an
+    interpreter where JAX, OpenCV, Pillow, h5py and the JAX package cannot
+    be imported."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", OFFLINE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")

@@ -64,10 +64,18 @@ the final `ok` line):
    gate excludes both options); the UNet step of each timed.
 11. inputs: probes pkg-config for FFmpeg and g++; decodes the committed
    JPEG fixtures (tests/fixtures/torch_inputs) with data/jpeg.py, bit for
-   bit against the committed Pillow pixels, and times the decode; runs
-   `cli/infer.main` at 576x256 (flagship, random weights, --n_iter 50) on
-   a 20-file JPEG directory made from the fixtures and checks its results
-   directory and that K1-K3 launched. Where FFmpeg is found: decodes the
+   bit against the committed Pillow pixels, and times the decode; decodes
+   every file of tests/fixtures/torch_formats (progressive, block-smoothed,
+   arithmetic-coded, 4:1:1, CMYK, YCCK and lossless JPEG; palette, 1- to
+   4-bit, Adam7 and 16-bit PNG) in its three views (Pillow's raw array,
+   Pillow's RGB, OpenCV's RGB) against the committed pixels or their
+   hashes, checks that the 12-bit file raises, and times each decode beside
+   a baseline file of the same pixels and size (data/jpeg.py's encoder, or
+   a non-interlaced 8-bit RGB PNG with the same row filters); runs `cli/infer.main` at 576x256 (flagship, random
+   weights, --n_iter 50) on a 20-file directory drawn from both fixture
+   directories (INFER_FRAMES: baseline JPEG and every family of the new
+   modes, each with its own extension) and checks its results directory
+   and that K1-K3 launched. Where FFmpeg is found: decodes the
    committed clip at its own size against the committed decode (at most
    VIDEO_LSB apart) and runs `cli/infer.main` on it the same way; where it
    is not, `load_video` must raise the error that names frame directories.
@@ -231,6 +239,18 @@ FLOW_TERM_REL = 1e-9
 VIDEO_LSB = 2
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                         "torch_inputs")
+FORMATS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                       "torch_formats")
+# the 20 frames of the inputs phase's cli/infer run: two baseline JPEG fixtures
+# and a file of every family of the modes in FORMATS (the Sintel-size
+# progressive file among them), each with its own extension
+INFER_FRAMES = ([os.path.join(FIXTURES, f) for f in ("frame_0_444_q95.jpg", "frame_4_gray_q90.jpg")]
+                + [os.path.join(FORMATS, f) for f in (
+                    "prog_420_q85.jpg", "prog_1024x436.jpg", "smooth_420.jpg",
+                    "smooth_dc_gray.jpg", "arith_420_rst5.jpg", "arith_prog_420.jpg",
+                    "h411_97x61.jpg", "cmyk.jpg", "ycck.jpg", "lossless_rgb_p6_rows1.jpg",
+                    "lossless_420_p1.jpg", "palette_trns.png", "mode1.png", "gray4.png",
+                    "adam7_rgb.png", "rgb16.png", "gray16.png", "la16.png")])
 # nothing of these may be loaded by the end of the run (the offline tools
 # import h5py only where it is needed, and the card has none); Pillow is also
 # made unimportable before the port is imported
@@ -1139,10 +1159,107 @@ def infer_cli(dev, video_path, savedir, what):
     return wall
 
 
+def _host_ms(fn, budget_s=0.05):
+    """Host milliseconds per call of fn(): the median of three runs of
+    enough calls to fill about `budget_s` seconds each."""
+    t0 = time.perf_counter()
+    fn()
+    first = time.perf_counter() - t0
+    reps = max(3, min(200, int(budget_s / max(first, 1e-6))))
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        runs.append((time.perf_counter() - t0) * 1e3 / reps)
+    return statistics.median(runs)
+
+
+def formats_check():
+    """Every file of tests/fixtures/torch_formats in its three views against
+    the committed pixels (arrays, or SHA-256 and shape), the 12-bit file
+    refused, and each decode timed beside a baseline file of the same
+    pixels and size: baseline JPEG (data/jpeg.py's encoder, quality 85,
+    grayscale for a grayscale file, else RGB 4:2:0) or
+    a non-interlaced 8-bit RGB PNG with the fixtures' filters (make_fixtures
+    .png_bytes). Returns {file: (ms, baseline ms)}."""
+    import hashlib
+
+    from geo4d_tpu_torch.data import images, jpeg
+
+    import importlib.util
+
+    pixels = dict(np.load(os.path.join(FORMATS, "pixels.npz")))
+    spec = importlib.util.spec_from_file_location("make_fixtures",
+                                                  os.path.join(FORMATS, "make_fixtures.py"))
+    writer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(writer)
+
+    def same(name, key, got):
+        if name + key in pixels and pixels[name + key].dtype.kind != "U":
+            want = pixels[name + key]
+            return got.shape == want.shape and got.dtype == want.dtype and np.array_equal(
+                got, want)
+        digest = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+        return (tuple(pixels[f"{name}{key}:shape"]) == got.shape
+                and str(pixels[name + key]) == digest)
+
+    times = {}
+    for name in sorted(os.listdir(FORMATS)):
+        path = os.path.join(FORMATS, name)
+        if name.startswith("refused_"):
+            try:
+                jpeg.read_jpeg(path)
+            except ValueError as e:
+                print(f"inputs: {name} is refused: {e}", flush=True)
+                continue
+            raise AssertionError(f"inputs: {name} decoded, but Pillow refuses it")
+        if not name.endswith((".jpg", ".png")):
+            continue
+        rgb_key = ":rgb" if name + ":rgb" in pixels else ""
+        views = [("raw", images.read_pillow(path), ""),
+                 ("pillow rgb", images.read_rgb(path, "pillow"), rgb_key)]
+        if name + ":cv2_refuses" in pixels:
+            try:
+                images.read_rgb(path, "opencv")
+                raise AssertionError(f"inputs: {name}: OpenCV refuses it, the port decoded it")
+            except ValueError:
+                pass
+        else:
+            views.append(("opencv rgb", images.read_rgb(path, "opencv"),
+                          ":cv2" if name + ":cv2" in pixels else rgb_key))
+        for what, got, key in views:
+            if (key or name in pixels) and not same(name, key, got):
+                raise AssertionError(f"inputs: {name} ({what}) decodes unlike the committed "
+                                     "pixels")
+        with open(path, "rb") as f:
+            data = f.read()
+        rgb = views[1][1]
+        if name.endswith(".jpg"):
+            raw = views[0][1]
+            base = jpeg.encode_jpeg(raw if raw.ndim == 2 else rgb, 85)   # gray stays gray
+            ms = _host_ms(lambda: jpeg.decode_jpeg(data, name))
+            base_ms = _host_ms(lambda: jpeg.decode_jpeg(base))
+            kind = f"SOF{jpeg.frame_marker(data) - 0xC0}"
+        else:
+            base = writer.png_bytes(rgb, 2, 8)   # 8-bit RGB, the fixtures' cycle of filters
+            ms = _host_ms(lambda: images.decode_png(data, name))
+            base_ms = _host_ms(lambda: images.decode_png(base))
+            w, h, depth, ctype, interlace = images.png_header(data)
+            kind = f"PNG type {ctype} depth {depth}{' Adam7' if interlace else ''}"
+        times[name] = (ms, base_ms)
+        print(f"inputs: {name} ({kind}, {rgb.shape[1]}x{rgb.shape[0]}) equals the committed "
+              f"pixels in {len(views)} views; decode {ms:.4f} ms per frame (host), baseline "
+              f"of the same pixels and size {base_ms:.4f} ms ({ms / base_ms:.2f}x)",
+              flush=True)
+    return times
+
+
 def inputs_phase(dev):
     """Frame and video input on the card: the FFmpeg probe, the JPEG fixtures
-    against Pillow's committed pixels, cli/infer on a JPEG directory, and on
-    the committed clip where FFmpeg is present."""
+    against Pillow's committed pixels, every frame-file format against the
+    committed pixels (formats_check), cli/infer on a directory that mixes
+    them, and on the committed clip where FFmpeg is present."""
     from geo4d_tpu_torch.data import jpeg
     from geo4d_tpu_torch.data.video import load_video
 
@@ -1165,14 +1282,13 @@ def inputs_phase(dev):
         ms = (time.perf_counter() - t0) * 1e3 / reps
         print(f"inputs: {name} ({got.shape}) equals Pillow's pixels; decode {ms:.4f} ms per "
               "frame (host)", flush=True)
+    formats_check()
     with tempfile.TemporaryDirectory() as tmp:
-        clip_dir = os.path.join(tmp, "jpeg_clip")
+        clip_dir = os.path.join(tmp, "mixed_clip")
         os.makedirs(clip_dir)
-        names = sorted(f for f in os.listdir(FIXTURES) if f.endswith(".jpg"))
-        for i in range(20):
-            shutil.copy(os.path.join(FIXTURES, names[i % len(names)]),
-                        os.path.join(clip_dir, f"{i:05d}.jpg"))
-        infer_cli(dev, clip_dir, os.path.join(tmp, "out"), "inputs jpeg")
+        for i, path in enumerate(INFER_FRAMES):
+            shutil.copy(path, os.path.join(clip_dir, f"{i:05d}{os.path.splitext(path)[1]}"))
+        infer_cli(dev, clip_dir, os.path.join(tmp, "out"), "inputs mixed formats")
         clip = os.path.join(FIXTURES, "clip.mp4")
         if not have_ffmpeg:
             try:

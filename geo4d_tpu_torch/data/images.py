@@ -45,9 +45,15 @@ from typing import Tuple
 
 import numpy as np
 
+from geo4d_tpu_torch.data.jpeg import decode_jpeg, frame_marker
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> samples per pixel (3, palette, is not read)
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# colour type -> samples per pixel (3: palette indices), and its bit depths
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
 # Pillow's fixed point for 8-bit images: 32 bits less 8 of data and 2 of headroom
 PRECISION_BITS = 32 - 8 - 2
 LANCZOS_SUPPORT = 3.0
@@ -55,44 +61,88 @@ BICUBIC_SUPPORT = 2.0
 BICUBIC_A = -0.5
 
 
-def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """The pixels of a PNG file's bytes; `name` is used in errors."""
-    if data[:8] != PNG_SIGNATURE:
+def png_header(data: bytes, name: str = "<bytes>") -> Tuple[int, int, int, int, int]:
+    """(width, height, bit depth, colour type, interlace) of a PNG file's bytes."""
+    if data[:8] != PNG_SIGNATURE or data[12:16] != b"IHDR":
         raise ValueError(f"{name}: not a PNG file")
-    pos, header, idat = 8, None, []
+    w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", data[16:29])
+    return w, h, depth, ctype, interlace
+
+
+def decode_png(data: bytes, name: str = "<bytes>", palette_indices: bool = False) -> np.ndarray:
+    """The pixels of a PNG file's bytes; `name` is used in errors. A palette
+    image is expanded to RGB, or to RGBA where it has a tRNS chunk, unless
+    `palette_indices`, which returns its (H, W) uint8 indices."""
+    w, h, depth, ctype, interlace = png_header(data, name)
+    pos, plte, trns, idat = 8, None, None, []
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
         pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
+        if kind == b"PLTE":
+            plte = body
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
-    if header is None or not idat:
-        raise ValueError(f"{name}: PNG without IHDR or IDAT")
-    w, h, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise ValueError(f"{name}: interlaced PNG is not supported")
-    if ctype not in _CHANNELS:
-        raise ValueError(f"{name}: PNG colour type {ctype} (palette) is not supported")
-    if depth not in (8, 16):
-        raise ValueError(f"{name}: PNG bit depth {depth} is not supported (8 or 16)")
+    if not idat:
+        raise ValueError(f"{name}: PNG without IDAT")
+    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype] or interlace > 1:
+        raise ValueError(f"{name}: PNG colour type {ctype} at bit depth {depth} (interlace "
+                         f"{interlace}) is not a valid PNG mode")
+    if ctype == 3 and plte is None:
+        raise ValueError(f"{name}: palette PNG without a PLTE chunk")
     ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (w * bpp + 1):
+    if interlace:
+        px = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw > 0 and ph > 0:
+                px[y0::dy, x0::dx], pos = _decode_pass(raw, pos, pw, ph, ch, depth, name)
+    else:
+        px, _ = _decode_pass(raw, 0, w, h, ch, depth, name)
+    if ctype == 3:
+        if palette_indices:
+            return px[..., 0]
+        colours = np.zeros((256, 4), np.uint8)     # missing entries are black, opaque
+        colours[:, 3] = 255
+        entries = np.frombuffer(plte, np.uint8)[:768].reshape(-1, 3)
+        colours[:len(entries), :3] = entries
+        if trns is not None:
+            alpha = np.frombuffer(trns, np.uint8)[:256]
+            colours[:len(alpha), 3] = alpha
+        return colours[px[..., 0], :4 if trns is not None else 3]
+    if depth < 8:                                  # grayscale: 0/255, x85 or x17
+        px = px * np.uint8(255 // ((1 << depth) - 1))
+    return px[..., 0] if ch == 1 else px
+
+
+def _decode_pass(raw: np.ndarray, pos: int, w: int, h: int, ch: int, depth: int,
+                 name: str) -> Tuple[np.ndarray, int]:
+    """One (sub)image of w x h pixels from the decompressed stream at `pos`:
+    (H, W, ch) samples (uint16 at depth 16, else uint8, unscaled), and the
+    position after it."""
+    bits = ch * depth
+    bpp = max(1, bits // 8)                        # the filters' byte distance
+    row = -(-w * bits // 8)
+    end = pos + h * (row + 1)
+    if raw.size < end:
         raise ValueError(f"{name}: truncated PNG image data")
-    rows = raw[:h * (w * bpp + 1)].reshape(h, w * bpp + 1)
+    rows = raw[pos:end].reshape(h, row + 1)
     ftype = rows[:, 0]
     if (ftype > 4).any():
         raise ValueError(f"{name}: unknown PNG row filter {int(ftype.max())}")
-    px = _unfilter(rows[:, 1:].reshape(h, w, bpp), ftype)
+    px = _unfilter(rows[:, 1:].reshape(h, row // bpp, bpp), ftype).reshape(h, row)
     if depth == 16:
-        px = px.reshape(h, w * bpp).view(">u2").astype(np.uint16)
-    px = px.reshape(h, w, ch)
-    return px[..., 0] if ch == 1 else px
+        px = px.view(">u2").astype(np.uint16)
+    elif depth < 8:                                # packed samples, most significant first
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        px = ((px[..., None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+    return px.reshape(h, w, ch), end
 
 
 def _unfilter(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
@@ -119,9 +169,95 @@ def _unfilter(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
-def read_png(path: str) -> np.ndarray:
+def read_png(path: str, palette_indices: bool = False) -> np.ndarray:
     with open(path, "rb") as f:
-        return decode_png(f.read(), path)
+        return decode_png(f.read(), path, palette_indices)
+
+
+# the library whose decode a reader reproduces: Pillow's Image.open(path)
+# .convert("RGB"), or OpenCV's cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+CONVENTIONS = ("pillow", "opencv")
+
+
+def _check_convention(convention: str) -> None:
+    if convention not in CONVENTIONS:
+        raise ValueError(f"convention must be one of {CONVENTIONS}, got {convention!r}")
+
+
+def cmyk_to_rgb(cmyk: np.ndarray, convention: str) -> np.ndarray:
+    """(H, W, 4) CMYK as Pillow shows a CMYK JPEG (decode_jpeg's output) ->
+    (H, W, 3) uint8 RGB: Pillow's convert("RGB") (255 - K less C scaled by
+    255 - K, its MULDIV255 rounding) or OpenCV's imread (on libjpeg's inverted
+    samples c, k: k - ((255 - c) * k >> 8)). The two differ by an LSB."""
+    _check_convention(convention)
+    v = cmyk.astype(np.int32)
+    if convention == "pillow":
+        nk = 255 - v[..., 3:]
+        t = v[..., :3] * nk + 128
+        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+    raw = 255 - v
+    k = raw[..., 3:]
+    return (k - (((255 - raw[..., :3]) * k) >> 8)).astype(np.uint8)
+
+
+def _png_rgb(img: np.ndarray, depth: int, ctype: int, convention: str) -> np.ndarray:
+    """read_png's output -> (H, W, 3) uint8: 16-bit samples keep their high
+    byte, except Pillow's 16-bit grayscale (mode I;16), which it clips to
+    255; grayscale repeated, alpha dropped."""
+    if depth == 16:
+        img = (np.minimum(img, 255) if convention == "pillow" and ctype == 0
+               else img >> 8).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    return np.ascontiguousarray(np.repeat(img[..., :1], 3, -1) if img.shape[2] < 3
+                                else img[..., :3])
+
+
+def read_rgb(path: str, convention: str = "pillow") -> np.ndarray:
+    """A PNG or JPEG file (by its extension) as (H, W, 3) uint8 RGB, bit for
+    bit what `convention`'s library gives: every PNG mode (palette, 1-16 bit,
+    Adam7) and every JPEG that data/jpeg.py decodes. The conventions differ
+    on CMYK JPEG and 16-bit grayscale PNG."""
+    _check_convention(convention)
+    with open(path, "rb") as f:
+        data = f.read()
+    if not path.lower().endswith(".png"):
+        return jpeg_rgb(decode_jpeg(data, path), convention, path, frame_marker(data))
+    _, _, depth, ctype, _ = png_header(data, path)
+    return _png_rgb(decode_png(data, path), depth, ctype, convention)
+
+
+def jpeg_rgb(img: np.ndarray, convention: str, name: str, marker: int) -> np.ndarray:
+    """decode_jpeg's output (frame header `marker`) -> (H, W, 3) uint8 RGB
+    as `convention`'s library gives it: grayscale repeated, CMYK converted.
+    OpenCV refuses a grayscale lossless file (libjpeg-turbo 3 will not
+    expand it to colour): so does this."""
+    _check_convention(convention)
+    if img.ndim == 2:
+        if convention == "opencv" and marker == 0xC3:
+            raise ValueError(f"{name}: OpenCV's imread refuses grayscale lossless JPEG (SOF3)")
+        return np.ascontiguousarray(np.repeat(img[..., None], 3, -1))
+    return cmyk_to_rgb(img, convention) if img.shape[2] == 4 else img
+
+
+def read_pillow(path: str) -> np.ndarray:
+    """A PNG or JPEG file as `np.asarray(Image.open(path))` gives it: JPEG
+    grayscale (H, W), RGB, or inverted CMYK (H, W, 4); PNG palette indices,
+    mode "1" as bool, 16-bit grayscale as uint16 (mode I;16), other 16-bit
+    modes as their high bytes (grayscale + alpha as RGBA: L, L, L, A)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not path.lower().endswith(".png"):
+        return decode_jpeg(data, path)
+    _, _, depth, ctype, _ = png_header(data, path)
+    img = decode_png(data, path, palette_indices=True)
+    if depth == 1 and ctype == 0:
+        return img > 0
+    if depth == 16 and ctype != 0:
+        img = (img >> 8).astype(np.uint8)
+        if ctype == 4:
+            img = img[..., [0, 0, 0, 1]]
+    return img
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -2,11 +2,17 @@
 (csrc/jpeg_decode.cpp, csrc/jpeg_encode.cpp), built with g++ at first use
 into build/geo4d_tpu_torch/ and loaded with ctypes.
 
-The decoder computes what Pillow's libjpeg-turbo computes by default (the
-integer islow IDCT, fancy chroma upsampling, libjpeg's fixed-point YCbCr ->
-RGB), so `read_jpeg(path)` equals `np.asarray(Image.open(path))` pixel for
-pixel. Progressive, lossless and arithmetic-coded files raise a ValueError
-that names the file and the mode.
+The decoder computes what Pillow's libjpeg-turbo 3 computes by default, so
+`read_jpeg(path)` equals `np.asarray(Image.open(path))` pixel for pixel:
+baseline, extended, progressive (with libjpeg-turbo's block smoothing where
+a scan script leaves coefficient bits unsent) and lossless Huffman files,
+sequential and progressive arithmetic-coded files, every integral chroma
+sampling ratio (4:4:4 to 4:1:1), grayscale, RGB, YCbCr, and CMYK or YCCK
+(returned as Pillow shows CMYK: (H, W, 4), every sample inverted). What
+Pillow refuses raises a ValueError that names the file and the mode:
+12- and 16-bit samples, hierarchical files (SOF5-7, SOF13-15), lossless
+arithmetic coding (SOF11), fractional sampling ratios and a height given in
+a DNL marker.
 
 The encoder writes libjpeg-turbo's baseline defaults (JFIF 1.01, the Annex K
 tables scaled by quality, 4:2:0, islow FDCT, the standard Huffman tables),
@@ -69,8 +75,9 @@ def _encoder() -> ctypes.CDLL:
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """The pixels of a JPEG file's bytes: (H, W) uint8 for grayscale, else
-    (H, W, 3) RGB; `name` is used in errors."""
+    """The pixels of a JPEG file's bytes: (H, W) uint8 for grayscale, (H, W,
+    3) RGB, or (H, W, 4) inverted CMYK (Pillow's view); `name` is used in
+    errors."""
     lib = _library()
     err = ctypes.create_string_buffer(_ERR_LEN)
     w, h, ch = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -81,6 +88,24 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if lib.jd_decode(data, len(data), out.ctypes.data, err, _ERR_LEN):
         raise ValueError(f"{name}: {err.value.decode()}")
     return out[..., 0] if ch.value == 1 else out
+
+
+def frame_marker(data: bytes) -> int:
+    """The frame header's marker (0xC0-0xCF: SOF0 baseline, SOF2
+    progressive, SOF3 lossless, ...) of a JPEG file's bytes, 0 if none."""
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            pos += 1
+            continue
+        marker = data[pos + 1]
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            return marker
+        if marker == 0xFF or marker == 0x01 or 0xD0 <= marker <= 0xD8:
+            pos += 1 if marker == 0xFF else 2
+            continue
+        pos += 2 + (data[pos + 2] << 8 | data[pos + 3])
+    return 0
 
 
 def read_jpeg(path: str) -> np.ndarray:

@@ -44,8 +44,12 @@ from geo4d_tpu_torch.data.cropping import (
     opencv_to_colmap_intrinsics,
     rescale_image_depthmap,
 )
-from geo4d_tpu_torch.data.images import read_png, remap, resize_nearest, write_png
-from geo4d_tpu_torch.data.jpeg import read_jpeg, write_jpeg
+# read_image: np.asarray(Image.open(path)), the JAX preparers' Pillow reads;
+# read_rgb(path, convention): Pillow's convert("RGB") or OpenCV's imread, as
+# the JAX counterpart of each caller reads colour images
+from geo4d_tpu_torch.data.images import read_pillow as read_image
+from geo4d_tpu_torch.data.images import read_png, read_rgb, remap, resize_nearest, write_png
+from geo4d_tpu_torch.data.jpeg import write_jpeg
 from geo4d_tpu_torch.geometry import distortion
 
 # Pillow's JPEG quality when `save` is given none; OpenCV's for `imwrite`
@@ -134,25 +138,6 @@ def read_depth_exr(path: str) -> np.ndarray:
         out[y] = np.frombuffer(data, np.float32, w, pos)
         pos += size
     return out
-
-
-def read_image(path: str) -> np.ndarray:
-    """A PNG or JPEG file's pixels, as the file holds them (grayscale (H, W),
-    else (H, W, C); PNG may be 16-bit)."""
-    return read_png(path) if path.lower().endswith(".png") else read_jpeg(path)
-
-
-def read_rgb(path: str) -> np.ndarray:
-    """An 8-bit image file as (H, W, 3) uint8 RGB, as Pillow's
-    convert("RGB") and OpenCV's imread + BGR2RGB give it: grayscale
-    repeated, alpha dropped."""
-    img = read_image(path)
-    if img.dtype != np.uint8:
-        raise ValueError(f"{path}: 16-bit colour images are not supported")
-    if img.ndim == 2:
-        img = img[..., None]
-    return np.ascontiguousarray(np.repeat(img[..., :1], 3, -1) if img.shape[2] < 3
-                                else img[..., :3])
 
 
 def write_image(path: str, img: np.ndarray, quality: int):
@@ -261,7 +246,7 @@ def blendedmvs_process_view(root: str, img: str, out_dir: str, resolution=(512, 
     if osp.isfile(osp.join(out_dir, img + ".npz")):
         return
     K, R_c2w, t_c2w = load_blendedmvs_cam(osp.join(root, "cams", img + "_cam.txt"))
-    rgb = read_rgb(osp.join(root, "blended_images", img + ".jpg"))
+    rgb = read_rgb(osp.join(root, "blended_images", img + ".jpg"), "opencv")
     depth = load_pfm(osp.join(root, "rendered_depth_maps", img + ".pfm"))
 
     rgb, depth, K_out = rescale_image_depthmap(rgb, depth, K, resolution)
@@ -307,7 +292,7 @@ def staticthings3d_process_view(db_root: str, seq_rel: str, camera: str, num: st
     K = read_float3(osp.join(db_root, "intrinsics", seq_rel, num + ".float3"))
     cam2world = np.linalg.inv(read_float3(osp.join(db_root, "poses", rel + ".float3")))
     depth = read_float3(osp.join(db_root, "depths", rel + ".float3"))
-    imgs = {p: read_rgb(osp.join(db_root, f"frames_{p}", rel + ".png"))
+    imgs = {p: read_rgb(osp.join(db_root, f"frames_{p}", rel + ".png"), "opencv")
             for p in ("cleanpass", "finalpass")}
     # both passes share the crop; rescale once with the clean image and
     # re-apply to final (identical geometry)
@@ -389,7 +374,7 @@ def megadepth_process_view(in_dir: str, tag: str, K_rectif, pose_w2c, out_dir: s
     except ImportError as e:
         raise RuntimeError("megadepth depth maps need h5py") from e
 
-    img = read_rgb(osp.join(in_dir, "imgs", tag))
+    img = read_rgb(osp.join(in_dir, "imgs", tag), "opencv")
     with h5py.File(osp.join(in_dir, "depths", osp.splitext(tag)[0] + ".h5"), "r") as h5:
         depth = np.asarray(h5["depth"])
 
@@ -521,7 +506,7 @@ def prepare_co3d_category(
         K = ndc_to_pinhole_intrinsics(vp["focal_length"], vp["principal_point"], image_size)
         w2c = pytorch3d_camera_to_opencv_pose(vp["R"], vp["T"])
 
-        rgb = read_rgb(osp.join(co3d_dir, filepath))
+        rgb = read_rgb(osp.join(co3d_dir, filepath), "pillow")
         mask_path = filepath.replace("images", "masks").replace(".jpg", ".png")
         mask = read_image(osp.join(co3d_dir, mask_path)).astype(np.float32) / 255.0
         depth = co3d_read_depth(osp.join(co3d_dir, fd["depth"]["path"]))
@@ -562,9 +547,9 @@ def prepare_wildrgbd_sequence(
     frames = np.round(np.linspace(0, n - 1, num_frames)).astype(int).tolist()
 
     for fid in frames:
-        rgb = read_rgb(osp.join(scene_dir, "rgb", f"{fid:0>5d}.png"))
+        rgb = read_rgb(osp.join(scene_dir, "rgb", f"{fid:0>5d}.png"), "pillow")
         depth = read_png(osp.join(scene_dir, "depth", f"{fid:0>5d}.png")).astype(np.float64)
-        mask = read_png(osp.join(scene_dir, "masks", f"{fid:0>5d}.png")).astype(np.float32)
+        mask = read_image(osp.join(scene_dir, "masks", f"{fid:0>5d}.png")).astype(np.float32)
         if mask.max() > 1:
             mask = mask / 255.0
         dm = np.stack([depth, mask], axis=-1)
@@ -814,7 +799,7 @@ def waymo_crop_sequence(input_dir: str, output_dir: str, seq: str, resolution: i
         T = _WAYMO_AXES @ np.linalg.inv(cam_to_car[cam_idx])
         pts3d = data["pts3d"] @ T[:3, :3].T + T[:3, 3]
 
-        img = read_rgb(osp.join(seq_dir, frame + ".jpg"))
+        img = read_rgb(osp.join(seq_dir, frame + ".jpg"), "opencv")
         out_res = (resolution, 1) if W > H else (1, resolution)
         img, _, K2 = rescale_image_depthmap(img, None, cam_K[cam_idx], out_res)
         write_jpeg(osp.join(out_dir, frame + ".jpg"), img, 80)

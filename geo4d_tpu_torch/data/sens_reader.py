@@ -38,8 +38,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from geo4d_tpu_torch.data.images import resize_area, resize_nearest, write_png
-from geo4d_tpu_torch.data.jpeg import decode_jpeg, write_jpeg
+from geo4d_tpu_torch.data.images import jpeg_rgb, resize_area, resize_nearest, write_png
+from geo4d_tpu_torch.data.jpeg import decode_jpeg, frame_marker, write_jpeg
 
 
 @dataclass
@@ -154,9 +154,8 @@ def export_scene(
 
 def decode_rgb(data: bytes, name: str) -> np.ndarray:
     """A frame's JPEG as (H, W, 3) RGB, as OpenCV's IMREAD_COLOR decodes it
-    (a grayscale frame repeated)."""
-    img = decode_jpeg(data, name)
-    return np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img
+    (a grayscale frame repeated, CMYK converted as OpenCV converts it)."""
+    return jpeg_rgb(decode_jpeg(data, name), "opencv", name, frame_marker(data))
 
 
 def main(argv=None):

@@ -2,9 +2,12 @@
 device): the port's copy of geo4d_tpu/data/video.py's image-directory loader
 and native video decode, without OpenCV.
 
-PNG frames are read by data/images.py and JPEG frames by data/jpeg.py (the
-same pixels as Pillow's, without Pillow), then Lanczos-resized by
-data/images.py (Pillow's resize, bit for bit).
+A frame file is read as Pillow's Image.open(f).convert("RGB") reads it,
+without Pillow: every PNG mode by data/images.py (palette, 1- to 16-bit,
+Adam7; 16-bit samples keep their high byte, 16-bit grayscale clips to 255)
+and every JPEG that Pillow decodes by data/jpeg.py (progressive,
+arithmetic-coded, lossless, 4:1:1, CMYK with Pillow's conversion); then it
+is Lanczos-resized by data/images.py (Pillow's resize, bit for bit).
 
 Video files go through the repo's C++ FFmpeg decoder (native/video_decoder.cpp,
 built on first use, loaded with ctypes), which resizes at decode time.
@@ -22,8 +25,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from geo4d_tpu_torch.data.images import lanczos_resize, read_png
-from geo4d_tpu_torch.data.jpeg import read_jpeg
+from geo4d_tpu_torch.data.images import lanczos_resize, read_rgb
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native")
@@ -100,24 +102,13 @@ def load_image_dir(dir_path: str, video_size: Tuple[int, int], max_frames: int =
                    exts: Sequence[str] = (".png", ".jpg", ".jpeg")
                    ) -> Tuple[np.ndarray, List[str]]:
     """The files of a directory with an extension in `exts` (PNG or JPEG),
-    in name order, each resized to video_size (W, H) with Lanczos ->
-    ((T, H, W, 3) uint8, file names)."""
+    in name order, each read as Pillow's Image.open(f).convert("RGB") reads
+    it and resized to video_size (W, H) with Lanczos -> ((T, H, W, 3)
+    uint8, file names)."""
     files = sorted(f for f in glob.glob(os.path.join(dir_path, "*"))
                    if os.path.splitext(f)[1].lower() in exts)
     if max_frames > 0:
         files = files[:max_frames]
     if not files:
         raise FileNotFoundError(f"no images in {dir_path}")
-    return np.stack([lanczos_resize(_read_frame(f), video_size) for f in files]), files
-
-
-def _read_frame(path: str) -> np.ndarray:
-    """An 8-bit frame file (PNG or JPEG) as (H, W, 3) uint8 RGB, as Pillow's
-    convert("RGB") gives it: grayscale repeated, alpha dropped."""
-    img = read_png(path) if os.path.splitext(path)[1].lower() == ".png" else read_jpeg(path)
-    if img.dtype != np.uint8:
-        raise ValueError(f"{path}: 16-bit frames are not supported")
-    if img.ndim == 2:
-        img = img[..., None]
-    return np.ascontiguousarray(np.repeat(img[..., :1], 3, -1) if img.shape[2] < 3
-                                else img[..., :3])
+    return np.stack([lanczos_resize(read_rgb(f, "pillow"), video_size) for f in files]), files

@@ -175,21 +175,34 @@ def test_png_encode_decodes_equal(shape):
 
 
 def test_png_refuses_interlaced_palette_and_other_depths(tmp_path):
+    """Adam7, palette and 1-bit files decode as Pillow decodes them
+    (test_torch_formats.py holds every mode); what no PNG reader takes is
+    refused: an unknown interlace method, a palette without PLTE, a bit depth
+    that the colour type does not allow."""
     data = bytearray(images.encode_png(np.zeros((4, 5, 3), np.uint8)))
-    data[28] = 1                                 # IHDR interlace method: Adam7
+    data[28] = 2                                 # IHDR interlace method: none is 2
     path = str(tmp_path / "interlaced.png")
     with open(path, "wb") as f:
         f.write(data)
-    with pytest.raises(ValueError, match="interlaced.png: interlaced"):
+    with pytest.raises(ValueError, match=r"interlaced.png: .*\(interlace 2\)"):
         images.read_png(path)
     path = str(tmp_path / "palette.png")
     Image.fromarray(pattern(8, 8, 3)).convert("P").save(path)
-    with pytest.raises(ValueError, match="palette.png: PNG colour type 3"):
-        images.read_png(path)
+    np.testing.assert_array_equal(images.read_png(path),
+                                  np.asarray(Image.open(path).convert("RGB")))
+    with open(path, "rb") as f:
+        data = f.read()
+    start = data.index(b"PLTE") - 4
+    data = data[:start] + data[start + 12 + int.from_bytes(data[start:start + 4], "big"):]
+    with pytest.raises(ValueError, match="palette.png: palette PNG without a PLTE chunk"):
+        images.decode_png(data, "palette.png")
     path = str(tmp_path / "bits.png")
-    Image.fromarray(np.zeros((8, 8), bool)).save(path)
-    with pytest.raises(ValueError, match="bits.png: PNG bit depth 1"):
-        images.read_png(path)
+    Image.fromarray(np.eye(8, dtype=bool)).save(path)
+    np.testing.assert_array_equal(images.read_png(path), np.asarray(Image.open(path).convert("L")))
+    data = bytearray(images.encode_png(np.zeros((4, 5, 3), np.uint8)))
+    data[24] = 4                                 # IHDR bit depth 4 for RGB
+    with pytest.raises(ValueError, match="bits.png: PNG colour type 2 at bit depth 4"):
+        images.decode_png(bytes(data), "bits.png")
     with pytest.raises(ValueError, match="encode_png takes uint8"):
         images.encode_png(np.zeros((4, 4, 3), np.uint16))     # 16-bit gray is written
 

@@ -6,8 +6,10 @@ a grid of chroma sampling (4:4:4, 4:2:2, 4:2:0) x restart interval (none,
 every 2 MCUs, every MCU row) x quality (50, 95) over odd sizes, grayscale,
 4:4:0 and 16-bit quantisation tables (extended sequential, SOF1), and the
 committed fixtures (tests/fixtures/torch_inputs, written by its
-make_fixtures.py). Progressive files raise a ValueError naming the file and
-the mode; a failed build raises.
+make_fixtures.py). A mode that Pillow refuses (here a 12-bit progressive
+file) raises a ValueError naming the file and the mode; a failed build
+raises. The other modes (progressive, arithmetic, lossless, 4:1:1, CMYK)
+are held to Pillow and OpenCV in test_torch_formats.py.
 """
 
 import io
@@ -90,9 +92,16 @@ def test_440_and_extended_sequential_equal_pillow():
 
 
 def test_progressive_raises_naming_file_and_mode(tmp_path):
+    """Progressive files decode (test_torch_formats.py); one at 12-bit
+    precision, which Pillow refuses, raises naming the file and the mode."""
+    data = bytearray(save(picture(32, 48), progressive=True))
+    sof = data.index(b"\xff\xc2")
+    data[sof + 4] = 12                         # the frame header's sample precision
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(bytes(data))).load()
     path = tmp_path / "progressive.jpg"
-    path.write_bytes(save(picture(32, 48), progressive=True))
-    with pytest.raises(ValueError, match=r"progressive\.jpg: progressive JPEG \(SOF2\)"):
+    path.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match=r"progressive\.jpg: 12-bit JPEG \(SOF2\)"):
         jpeg.read_jpeg(str(path))
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.decode_jpeg(b"\x89PNG....", "x.png")

@@ -1,0 +1,7 @@
+"""Percent of the traced steps with no kernel or copy on the device."""
+
+from harness import readings
+
+
+def read(record):
+    return readings.idle(record)

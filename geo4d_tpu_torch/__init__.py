@@ -2,7 +2,7 @@
 
 Same subpackage layout as the JAX package, channels-last activations:
   core/       numpy noise-schedule tables, YAML config and model registry,
-              stage timer, host C++ library builds
+              stage timer and span recorder, host C++ library builds
   data/       CLIP tokenizer, frame and video loading (PNG and JPEG read
               and written: no Pillow), evaluation datasets, their
               preparation and Sintel's dynamic masks, the training batch

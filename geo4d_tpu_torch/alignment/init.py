@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from geo4d_tpu_torch.alignment.optimizer import GroupAligner
-from geo4d_tpu_torch.core.timing import stage
+from geo4d_tpu_torch.core.timing import count, stage
 from geo4d_tpu_torch.geometry.moge import point_map_to_depth
 from geo4d_tpu_torch.geometry.pnp import fast_pnp, fast_pnp_points_batched
 from geo4d_tpu_torch.geometry.se3 import pose_to_params, umeyama_sim3
@@ -117,7 +117,8 @@ def init_from_group(aligner: GroupAligner, pred_pts, conf, niter_pnp: int = 10,
     pred_pts (G, S, H, W, 3) and conf (G, S, H, W), on the aligner's device:
     tensors through the device-resident path, numpy arrays through the host
     chain. Returns the number of frames whose PnP failed (they keep the
-    identity pose)."""
+    identity pose); counters "pnp_frames" and "pnp_failed" (`core.timing`)
+    add the frames and those failures."""
     if isinstance(pred_pts, torch.Tensor):
         failures = _init_from_group_device(aligner, pred_pts, conf, niter_pnp, verbose, timer)
     else:
@@ -159,6 +160,8 @@ def _init_from_group_device(aligner: GroupAligner, pred_pts, conf, niter_pnp: in
         pnp_f, pnp_c2w, pnp_ok = fast_pnp_points_batched(
             sub, pix, sub_mask, (W, H), focals=warm, niter=niter_pnp)
         failures = int((~pnp_ok).sum())
+        count("pnp_frames", N)
+        count("pnp_failed", failures)
         if failures and verbose:
             print(f"[init] PnP failed for frames {np.flatnonzero(~pnp_ok).tolist()}; "
                   "identity pose")
@@ -274,6 +277,8 @@ def _init_from_group_host(aligner: GroupAligner, pred_pts, conf, niter_pnp: int,
             conf_list[i] = cf[g, s_idx]
             placed.add(int(i))
             pnp_frame(i, focal_group[g] if s_idx == 0 else im_focals[i - 1])
+    count("pnp_frames", N)
+    count("pnp_failed", len(failed))
     if verbose and failed:
         print(f"[init] PnP failed for frames {sorted(failed)}; identity pose")
 

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from geo4d_tpu_torch.core.device import default_device
-from geo4d_tpu_torch.core.timing import stage
+from geo4d_tpu_torch.core.timing import span, stage
 from geo4d_tpu_torch.evals.depth import lad_align_irls
 from geo4d_tpu_torch.evals.trajectory import Trajectory, align_trajectory_with_eval
 from geo4d_tpu_torch.geometry.se3 import params_to_pose, pose_to_params
@@ -301,7 +301,10 @@ class GroupAligner:
     def run(self, verbose: bool = False, timer=None) -> float:
         """Two-phase optimization: [0, start) point maps only; calibration;
         [start, n_iter) with disparity and trajectory anchors. Returns the
-        loss at the last iteration (before its update)."""
+        loss at the last iteration (before its update). Stages
+        "align_phase1", "calibrate", "align_phase2"; each iteration is a
+        span "align_iter" with children "align_loss", "align_backward" and
+        "align_adam" (`core.timing`)."""
         cfg = self.cfg
         start = min(cfg.depth_traj_start_iter, cfg.n_iter)
         trainable = [self.params[k] for k in PARAM_NAMES if self.params[k].requires_grad]
@@ -313,18 +316,23 @@ class GroupAligner:
         def phase(iters, use_depth_traj):
             losses = []
             for it in iters:
-                loss = self.loss_fn(self.params, use_depth_traj, it / cfg.n_iter)
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                for p in trainable:
-                    # a trainable leaf outside this phase's loss (traj_align
-                    # in phase 1) still takes an Adam step with a zero
-                    # gradient: optax counts steps globally
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                opt.param_groups[0]["lr"] = _lr_at(it, cfg)
-                opt.step()
-                losses.append(loss.detach())
+                with span("align_iter"):
+                    with span("align_loss"):
+                        loss = self.loss_fn(self.params, use_depth_traj, it / cfg.n_iter)
+                    with span("align_backward"):
+                        opt.zero_grad(set_to_none=True)
+                        loss.backward()
+                        for p in trainable:
+                            # a trainable leaf outside this phase's loss
+                            # (traj_align in phase 1) still takes an Adam
+                            # step with a zero gradient: optax counts steps
+                            # globally
+                            if p.grad is None:
+                                p.grad = torch.zeros_like(p)
+                    with span("align_adam"):
+                        opt.param_groups[0]["lr"] = _lr_at(it, cfg)
+                        opt.step()
+                    losses.append(loss.detach())
             return losses
 
         with torch.enable_grad():

@@ -152,7 +152,9 @@ def main(argv=None):
     global batch), the host seconds of each step's batch building, UNet
     forward + backward and AdamW + EMA (device synchronised around each),
     across ranks also the parameter gather and the gradient reduction, the
-    final timer stats and the state (this rank's slices under --fsdp)."""
+    final timer stats and the state (this rank's slices under --fsdp). With a
+    span recorder installed (`core.timing`), each step, its batch building
+    included, is one request, "train_step"."""
     args = get_parser().parse_args(argv)
     import torch
     import torch.distributed as dist
@@ -160,7 +162,7 @@ def main(argv=None):
     from geo4d_tpu_torch.cli.common import build_model, compute_text_context
     from geo4d_tpu_torch.cli.infer import resolve_device
     from geo4d_tpu_torch.core.draws import Draws, RankDraws
-    from geo4d_tpu_torch.core.timing import StageTimer
+    from geo4d_tpu_torch.core.timing import StageTimer, request
     from geo4d_tpu_torch.data.sampler import round_by
     from geo4d_tpu_torch.models.checkpoint import (restore_train_state, save_ema,
                                                    save_train_state)
@@ -222,12 +224,13 @@ def main(argv=None):
         # draws what the uninterrupted run would; each rank keeps its rows
         # of the global batch's draws
         stages = StageTimer(dev)
-        with stages("build"):
-            draws = Draws.seeded([args.seed, i, 0], dev)
-            batch = build_batch(args.modality, model, raw,
-                                RankDraws(draws, world, rank) if mesh else draws,
-                                prompt_emb, null_emb, args.uncond_prob, True)
-        state, metrics = step_fn(state, batch, Draws.seeded([args.seed, i, 1], dev), stages)
+        with request("train_step"):
+            with stages("build"):
+                draws = Draws.seeded([args.seed, i, 0], dev)
+                batch = build_batch(args.modality, model, raw,
+                                    RankDraws(draws, world, rank) if mesh else draws,
+                                    prompt_emb, null_emb, args.uncond_prob, True)
+            state, metrics = step_fn(state, batch, Draws.seeded([args.seed, i, 1], dev), stages)
         for k in stage_names:
             summary[f"{k}_s"].append(stages.seconds.get(k, 0.0))
         summary["losses"].append(float(metrics["loss_simple"]))

@@ -34,6 +34,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from geo4d_tpu_torch.core.timing import span
+
 MIN_SET = 6          # points of one DLT hypothesis
 FOCAL_SWEEP = 63
 GN_ROUNDS = 2
@@ -124,7 +126,10 @@ def fast_pnp_points_batched(
 
     A frame with more than `max_points` usable points keeps a seeded subset
     of them (np.random.default_rng(0).choice over its masked points, as the
-    reference does per frame)."""
+    reference does per frame). Spans (`core.timing`): "pnp_prep" (the
+    host's per-frame selection and the focal candidates), "pnp_ransac" (the
+    minimal sets, their DLT and fit, the inlier counts) and "pnp_refine"
+    (the refit on the inliers)."""
     dev = p3.device
     n = p3.shape[0]
     w, h = size_wh
@@ -136,106 +141,110 @@ def fast_pnp_points_batched(
         p2 = p2.expand(n, -1, -1)
     focals = [None] * n if focals is None else list(focals)
 
-    # ---- per-frame point selection (host: the seeded subsample) ----
-    mask_np = mask.cpu().numpy()
-    ok = np.ones(n, bool)
-    rows = []
-    for i in range(n):
-        idx = np.flatnonzero(mask_np[i])
-        if max_points and idx.size > max_points:
-            idx = idx[np.random.default_rng(0).choice(idx.size, max_points, replace=False)]
-        if idx.size < max(4, MIN_SET):
-            ok[i] = False
-        rows.append(idx)
-    m_max = max(max((r.size for r in rows), default=0), MIN_SET)
-    idx = np.zeros((n, m_max), np.int64)
-    valid_np = np.zeros((n, m_max), bool)
-    for i, r in enumerate(rows):
-        idx[i, :r.size] = r
-        valid_np[i, :r.size] = True
-    idx_t = torch.from_numpy(idx).to(dev)
-    valid = torch.from_numpy(valid_np).to(dev)
-    X = torch.take_along_dim(p3.to(torch.float64), idx_t[..., None], dim=1) * valid[..., None]
-    x = torch.take_along_dim(p2, idx_t[..., None], dim=1)
-    # degenerate map: every usable point identical
-    lo = torch.where(valid[..., None], X, torch.full_like(X, float("inf"))).amin(1)
-    hi = torch.where(valid[..., None], X, torch.full_like(X, -float("inf"))).amax(1)
-    ok &= ((hi - lo).amax(-1) >= 1e-9).cpu().numpy()
+    with span("pnp_prep"):
+        # ---- per-frame point selection (host: the seeded subsample) ----
+        mask_np = mask.cpu().numpy()
+        ok = np.ones(n, bool)
+        rows = []
+        for i in range(n):
+            idx = np.flatnonzero(mask_np[i])
+            if max_points and idx.size > max_points:
+                idx = idx[np.random.default_rng(0).choice(idx.size, max_points, replace=False)]
+            if idx.size < max(4, MIN_SET):
+                ok[i] = False
+            rows.append(idx)
+        m_max = max(max((r.size for r in rows), default=0), MIN_SET)
+        idx = np.zeros((n, m_max), np.int64)
+        valid_np = np.zeros((n, m_max), bool)
+        for i, r in enumerate(rows):
+            idx[i, :r.size] = r
+            valid_np[i, :r.size] = True
+        idx_t = torch.from_numpy(idx).to(dev)
+        valid = torch.from_numpy(valid_np).to(dev)
+        X = torch.take_along_dim(p3.to(torch.float64), idx_t[..., None], dim=1) * valid[..., None]
+        x = torch.take_along_dim(p2, idx_t[..., None], dim=1)
+        # degenerate map: every usable point identical
+        lo = torch.where(valid[..., None], X, torch.full_like(X, float("inf"))).amin(1)
+        hi = torch.where(valid[..., None], X, torch.full_like(X, -float("inf"))).amax(1)
+        ok &= ((hi - lo).amax(-1) >= 1e-9).cpu().numpy()
 
-    # ---- focal candidates (N, F) ----
-    cands = [focal_candidates(f, S) for f in focals]
-    n_f = max(c.size for c in cands)
-    cand = np.stack([np.pad(c, (0, n_f - c.size), mode="edge") for c in cands])
-    cand_ok = np.stack([np.arange(n_f) < c.size for c in cands])
-    fc = torch.from_numpy(cand).to(dev)                                   # (N, F)
+        # ---- focal candidates (N, F) ----
+        cands = [focal_candidates(f, S) for f in focals]
+        n_f = max(c.size for c in cands)
+        cand = np.stack([np.pad(c, (0, n_f - c.size), mode="edge") for c in cands])
+        cand_ok = np.stack([np.arange(n_f) < c.size for c in cands])
+        fc = torch.from_numpy(cand).to(dev)                                   # (N, F)
 
-    # ---- minimal sets from a CPU generator, shared across candidates ----
-    gen = torch.Generator().manual_seed(seed)
-    u = torch.rand(n, niter, m_max, generator=gen, dtype=torch.float64)
-    u = torch.where(torch.from_numpy(valid_np)[:, None], u, torch.full_like(u, 2.0))
-    sets = u.topk(MIN_SET, dim=-1, largest=False).indices.to(dev)        # (N, niter, 6)
+    with span("pnp_ransac"):
+        # ---- minimal sets from a CPU generator, shared across candidates ----
+        gen = torch.Generator().manual_seed(seed)
+        u = torch.rand(n, niter, m_max, generator=gen, dtype=torch.float64)
+        u = torch.where(torch.from_numpy(valid_np)[:, None], u, torch.full_like(u, 2.0))
+        sets = u.topk(MIN_SET, dim=-1, largest=False).indices.to(dev)        # (N, niter, 6)
 
-    # ---- DLT per set in normalised units ----
-    cnt = valid.sum(1, keepdim=True).clamp(min=1).to(torch.float64)
-    centre = X.sum(1) / cnt                                               # (N, 3)
-    spread = (torch.linalg.norm(X - centre[:, None], dim=-1) * valid).sum(1) / cnt[:, 0]
-    spread = torch.where(spread > 1e-12, spread, torch.ones_like(spread))
-    Xn = (X - centre[:, None]) / spread[:, None, None]
-    xs = (x - x.new_tensor(pp)) / S
-    Xs = torch.take_along_dim(Xn[:, None], sets[..., None], dim=2)       # (N, niter, 6, 3)
-    us = torch.take_along_dim(xs[:, None], sets[..., None], dim=2)       # (N, niter, 6, 2)
-    Xh = torch.cat([Xs, torch.ones_like(Xs[..., :1])], -1)                # (N, niter, 6, 4)
-    zero = torch.zeros_like(Xh)
-    A = torch.stack([torch.cat([Xh, zero, -us[..., :1] * Xh], -1),
-                     torch.cat([zero, Xh, -us[..., 1:] * Xh], -1)], dim=-2).flatten(-3, -2)
-    Q = torch.linalg.svd(A)[2][..., -1, :].reshape(n, niter, 3, 4)
-    # undo the point normalisation: Q' = Q [I/s, -c/s; 0, 1]
-    Q = torch.cat([Q[..., :3] / spread[:, None, None, None],
-                   Q[..., 3:] - (Q[..., :3] @ centre[:, None, :, None]) / spread[:, None, None, None]],
-                  dim=-1)
+        # ---- DLT per set in normalised units ----
+        cnt = valid.sum(1, keepdim=True).clamp(min=1).to(torch.float64)
+        centre = X.sum(1) / cnt                                               # (N, 3)
+        spread = (torch.linalg.norm(X - centre[:, None], dim=-1) * valid).sum(1) / cnt[:, 0]
+        spread = torch.where(spread > 1e-12, spread, torch.ones_like(spread))
+        Xn = (X - centre[:, None]) / spread[:, None, None]
+        xs = (x - x.new_tensor(pp)) / S
+        Xs = torch.take_along_dim(Xn[:, None], sets[..., None], dim=2)       # (N, niter, 6, 3)
+        us = torch.take_along_dim(xs[:, None], sets[..., None], dim=2)       # (N, niter, 6, 2)
+        Xh = torch.cat([Xs, torch.ones_like(Xs[..., :1])], -1)                # (N, niter, 6, 4)
+        zero = torch.zeros_like(Xh)
+        A = torch.stack([torch.cat([Xh, zero, -us[..., :1] * Xh], -1),
+                         torch.cat([zero, Xh, -us[..., 1:] * Xh], -1)], dim=-2).flatten(-3, -2)
+        Q = torch.linalg.svd(A)[2][..., -1, :].reshape(n, niter, 3, 4)
+        # undo the point normalisation: Q' = Q [I/s, -c/s; 0, 1]
+        s4 = spread[:, None, None, None]
+        Q = torch.cat([Q[..., :3] / s4, Q[..., 3:] - (Q[..., :3] @ centre[:, None, :, None]) / s4],
+                      dim=-1)
 
-    # ---- per focal candidate: rotation, translation, inliers ----
-    scale = torch.stack([S / fc, S / fc, torch.ones_like(fc)], -1)        # (N, F, 3)
-    P = scale[:, :, None, :, None] * Q[:, None]                           # (N, F, niter, 3, 4)
-    P = torch.nan_to_num(P * torch.sign(torch.linalg.det(P[..., :3]))[..., None, None])
-    U, sv, Vh = torch.linalg.svd(P[..., :3])
-    R = U @ Vh
-    t = P[..., 3] / sv.mean(-1, keepdim=True).clamp(min=1e-300)
-    ppt = x.new_tensor(pp)
-    f_b = fc[:, :, None].expand(-1, -1, niter)
-    # calibrated least-squares fit of each minimal set (the DLT's 3x3 block
-    # is only projected onto a rotation)
-    X_set = torch.take_along_dim(X[:, None], sets[..., None], dim=2)[:, None]
-    x_set = torch.take_along_dim(x[:, None], sets[..., None], dim=2)[:, None]
-    R, t = _refine(R, t, f_b, ppt, X_set, x_set,
-                   torch.ones(R.shape[:3] + (MIN_SET,), dtype=torch.bool, device=dev))
-    inl = _inliers(R, t, f_b, ppt, X[:, None, None], x[:, None, None], valid[:, None, None], reproj_err)
-    best = inl.sum(-1).argmax(-1)                                         # (N, F)
-    pick = best[..., None, None, None]
-    R = torch.take_along_dim(R, pick, dim=2)[:, :, 0]
-    t = torch.take_along_dim(t, best[..., None, None], dim=2)[:, :, 0]
-    inl = torch.take_along_dim(inl, best[..., None, None], dim=2)[:, :, 0]  # (N, F, M)
+        # ---- per focal candidate: rotation, translation, inliers ----
+        scale = torch.stack([S / fc, S / fc, torch.ones_like(fc)], -1)        # (N, F, 3)
+        P = scale[:, :, None, :, None] * Q[:, None]                           # (N, F, niter, 3, 4)
+        P = torch.nan_to_num(P * torch.sign(torch.linalg.det(P[..., :3]))[..., None, None])
+        U, sv, Vh = torch.linalg.svd(P[..., :3])
+        R = U @ Vh
+        t = P[..., 3] / sv.mean(-1, keepdim=True).clamp(min=1e-300)
+        ppt = x.new_tensor(pp)
+        f_b = fc[:, :, None].expand(-1, -1, niter)
+        # calibrated least-squares fit of each minimal set (the DLT's 3x3 block
+        # is only projected onto a rotation)
+        X_set = torch.take_along_dim(X[:, None], sets[..., None], dim=2)[:, None]
+        x_set = torch.take_along_dim(x[:, None], sets[..., None], dim=2)[:, None]
+        R, t = _refine(R, t, f_b, ppt, X_set, x_set,
+                       torch.ones(R.shape[:3] + (MIN_SET,), dtype=torch.bool, device=dev))
+        inl = _inliers(R, t, f_b, ppt, X[:, None, None], x[:, None, None], valid[:, None, None],
+                       reproj_err)
+        best = inl.sum(-1).argmax(-1)                                         # (N, F)
+        pick = best[..., None, None, None]
+        R = torch.take_along_dim(R, pick, dim=2)[:, :, 0]
+        t = torch.take_along_dim(t, best[..., None, None], dim=2)[:, :, 0]
+        inl = torch.take_along_dim(inl, best[..., None, None], dim=2)[:, :, 0]  # (N, F, M)
 
-    # ---- refit on the inliers ----
-    Xf, xf, vf = X[:, None], x[:, None], valid[:, None]
-    for _ in range(GN_ROUNDS):
-        R, t = _refine(R, t, fc, ppt, Xf, xf, inl)
-        inl = _inliers(R, t, fc, ppt, Xf, xf, vf, reproj_err)
-    finite = torch.isfinite(R).flatten(-2).all(-1) & torch.isfinite(t).all(-1)
-    score = torch.where(finite, inl.sum(-1), torch.full_like(inl[..., 0], -1, dtype=torch.long))
-    score = torch.where(torch.from_numpy(cand_ok).to(dev), score, torch.full_like(score, -1))
-    k = score.argmax(-1)                                                  # first best candidate
-    best_score = torch.take_along_dim(score, k[:, None], dim=1)[:, 0]
-    R = torch.take_along_dim(R, k[:, None, None, None], dim=1)[:, 0]
-    t = torch.take_along_dim(t, k[:, None, None], dim=1)[:, 0]
-    ok &= (best_score >= MIN_SET).cpu().numpy()
+    with span("pnp_refine"):
+        # ---- refit on the inliers ----
+        Xf, xf, vf = X[:, None], x[:, None], valid[:, None]
+        for _ in range(GN_ROUNDS):
+            R, t = _refine(R, t, fc, ppt, Xf, xf, inl)
+            inl = _inliers(R, t, fc, ppt, Xf, xf, vf, reproj_err)
+        finite = torch.isfinite(R).flatten(-2).all(-1) & torch.isfinite(t).all(-1)
+        score = torch.where(finite, inl.sum(-1), torch.full_like(inl[..., 0], -1, dtype=torch.long))
+        score = torch.where(torch.from_numpy(cand_ok).to(dev), score, torch.full_like(score, -1))
+        k = score.argmax(-1)                                                  # first best candidate
+        best_score = torch.take_along_dim(score, k[:, None], dim=1)[:, 0]
+        R = torch.take_along_dim(R, k[:, None, None, None], dim=1)[:, 0]
+        t = torch.take_along_dim(t, k[:, None, None], dim=1)[:, 0]
+        ok &= (best_score >= MIN_SET).cpu().numpy()
 
-    c2w = torch.eye(4, dtype=torch.float64, device=dev).repeat(n, 1, 1)
-    c2w[:, :3, :3] = R.transpose(-1, -2)
-    c2w[:, :3, 3] = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
-    focal_out = np.take_along_axis(cand, k.cpu().numpy()[:, None], axis=1)[:, 0]
-    c2w_np = c2w.cpu().numpy()
-    c2w_np[~ok] = np.eye(4)
+        c2w = torch.eye(4, dtype=torch.float64, device=dev).repeat(n, 1, 1)
+        c2w[:, :3, :3] = R.transpose(-1, -2)
+        c2w[:, :3, 3] = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
+        focal_out = np.take_along_axis(cand, k.cpu().numpy()[:, None], axis=1)[:, 0]
+        c2w_np = c2w.cpu().numpy()
+        c2w_np[~ok] = np.eye(4)
     return focal_out, c2w_np, ok
 
 

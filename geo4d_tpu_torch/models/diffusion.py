@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from geo4d_tpu_torch.core.schedules import DiffusionSchedule
+from geo4d_tpu_torch.core.timing import span
 from geo4d_tpu_torch.models.autoencoder import AutoencoderKL
 from geo4d_tpu_torch.models.unet3d import UNet3D
 from geo4d_tpu_torch.nn.clip import CLIPTextEncoder, CLIPVisionEncoder, clip_preprocess
@@ -93,12 +94,16 @@ class GeoDiffusion(nn.Module):
     def decode_geometry(self, samples: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, T, h, w, 16) -> pointmap_conf, raymap, crossmap, inv_depth maps.
         The three RGB-VAE heads decode as one 3x-frames batch; windows are
-        decoded one at a time to bound the full-resolution working set."""
+        decoded one at a time to bound the full-resolution working set. Each
+        decode (the pointmap VAE's, the RGB VAE's) is a span "decode_head"
+        (`core.timing`)."""
         outs = []
         for s in samples.split(1):
-            pc = self.decode_pointmap_conf(s[..., 0:4])
-            rgb3 = torch.cat([s[..., 4:8], s[..., 8:12], s[..., 12:16]], dim=0)
-            ray, cross, depth3 = self.decode_first_stage(rgb3).split(1)
+            with span("decode_head"):
+                pc = self.decode_pointmap_conf(s[..., 0:4])
+            with span("decode_head"):
+                rgb3 = torch.cat([s[..., 4:8], s[..., 8:12], s[..., 12:16]], dim=0)
+                ray, cross, depth3 = self.decode_first_stage(rgb3).split(1)
             outs.append({"pointmap_conf": pc, "raymap": ray, "crossmap": cross,
                          "inv_depth": depth3.mean(dim=-1, keepdim=True)})
         return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}

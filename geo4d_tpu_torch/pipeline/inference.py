@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from geo4d_tpu_torch.alignment.init import init_from_group
 from geo4d_tpu_torch.alignment.optimizer import AlignerConfig, GroupAligner
 from geo4d_tpu_torch.core.draws import Draws, RankDraws
-from geo4d_tpu_torch.core.timing import stage
+from geo4d_tpu_torch.core.timing import request, stage
 from geo4d_tpu_torch.geometry.normalize import (
     denormalize_inverse_depth,
     denormalize_pointcloud_bbox2,
@@ -291,7 +291,9 @@ def reconstruct(model: GeoDiffusion, frames: np.ndarray, text_ctx: np.ndarray, f
     sec_per_frame). With a `mesh`, the ranks share the windows
     (WindowPredictor) and every rank gets all the predictions; rank 0 alone
     aligns them (the JAX package's single controller aligns once) and the
-    other ranks return (None, predictions, timing) with alignment_s 0."""
+    other ranks return (None, predictions, timing) with alignment_s 0. With a
+    span recorder installed (`core.timing`), the call is one request,
+    `reconstruct`."""
     t_total, h, w = frames.shape[:3]
     groups = sliding_windows(t_total, inference_config.window, inference_config.stride)
     predictor = WindowPredictor(model, inference_config, device=device, mesh=mesh)
@@ -301,20 +303,21 @@ def reconstruct(model: GeoDiffusion, frames: np.ndarray, text_ctx: np.ndarray, f
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    sync()
-    t0 = time.perf_counter()
-    preds = predictor.predict_video(frames, groups, text_ctx, fps, seed,
-                                    uncond_text_ctx=uncond_text_ctx, return_device=True,
-                                    timer=timer)
-    sync()
-    t_diffusion = time.perf_counter() - t0
-    aligner, t_align = None, 0.0
-    if mesh is None or mesh.rank == 0:
-        t0 = time.perf_counter()
-        aligner = align_predictions(groups, preds, (h, w), aligner_config, intrinsics,
-                                    verbose=verbose, timer=timer)
+    with request("reconstruct"):
         sync()
-        t_align = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preds = predictor.predict_video(frames, groups, text_ctx, fps, seed,
+                                        uncond_text_ctx=uncond_text_ctx, return_device=True,
+                                        timer=timer)
+        sync()
+        t_diffusion = time.perf_counter() - t0
+        aligner, t_align = None, 0.0
+        if mesh is None or mesh.rank == 0:
+            t0 = time.perf_counter()
+            aligner = align_predictions(groups, preds, (h, w), aligner_config, intrinsics,
+                                        verbose=verbose, timer=timer)
+            sync()
+            t_align = time.perf_counter() - t0
     timing = {
         "diffusion_s": t_diffusion,
         "alignment_s": t_align,

@@ -14,12 +14,13 @@ deterministic inversion).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from geo4d_tpu_torch.core.timing import stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +89,7 @@ def ddim_sample(model_fn: Callable[[torch.Tensor, int, int], torch.Tensor], shap
         x = _normal(generator, shape, device)
 
     for step, i in enumerate(reversed(range(len(tables.timesteps)))):
-        with timer(f"ddim_step_{step}") if timer else contextlib.nullcontext():
+        with stage(timer, f"ddim_step_{step}"):
             a_t = f32(tables.alphas[i])
             a_prev = f32(tables.alphas_prev[i])
             sigma_t = f32(tables.sigmas[i])

@@ -22,6 +22,7 @@ from typing import Dict
 
 import torch
 
+from geo4d_tpu_torch.core.timing import span
 from geo4d_tpu_torch.models.diffusion import GeoDiffusion
 
 Batch = Dict[str, torch.Tensor]
@@ -29,11 +30,13 @@ Batch = Dict[str, torch.Tensor]
 
 def _encode(model: GeoDiffusion, frames: torch.Tensor, draws) -> torch.Tensor:
     """(B, T, H, W, 3) -> scaled posterior samples (B, T, h, w, 4), the noise
-    drawn from `draws` (the JAX builders sample the posterior)."""
-    b, t = frames.shape[:2]
-    mean, logvar = model.vae.encode(frames.reshape(b * t, *frames.shape[2:]))
-    z = model.scale_factor * (mean + torch.exp(0.5 * logvar) * draws.normal(mean.shape))
-    return z.reshape(b, t, *z.shape[1:])
+    drawn from `draws` (the JAX builders sample the posterior). A span
+    "build_encode"."""
+    with span("build_encode"):
+        b, t = frames.shape[:2]
+        mean, logvar = model.vae.encode(frames.reshape(b * t, *frames.shape[2:]))
+        z = model.scale_factor * (mean + torch.exp(0.5 * logvar) * draws.normal(mean.shape))
+        return z.reshape(b, t, *z.shape[1:])
 
 
 def _cfg_dropout_masks(draws, batch_size: int, uncond_prob: float, enabled: bool, device):
@@ -48,15 +51,18 @@ def _cfg_dropout_masks(draws, batch_size: int, uncond_prob: float, enabled: bool
 def _conditioning(model: GeoDiffusion, video: torch.Tensor, prompt_emb: torch.Tensor,
                   null_prompt_emb: torch.Tensor, draws, uncond_prob: float,
                   random_uncond: bool) -> torch.Tensor:
-    """[prompt (77) | image tokens (T * 16)] with the CFG dropout applied."""
-    b = video.shape[0]
-    drop_text, drop_image = _cfg_dropout_masks(draws, b, uncond_prob, random_uncond,
-                                               video.device)
-    prompt = torch.where(drop_text[:, None, None], null_prompt_emb.expand_as(prompt_emb),
-                         prompt_emb)
-    frames_in = torch.where(drop_image[:, None, None, None, None], torch.zeros_like(video), video)
-    img_ctx = model.embed_frames(frames_in)
-    return torch.cat([prompt, img_ctx.to(prompt.dtype)], dim=1)
+    """[prompt (77) | image tokens (T * 16)] with the CFG dropout applied
+    (CLIP and the resampler): a span "build_context"."""
+    with span("build_context"):
+        b = video.shape[0]
+        drop_text, drop_image = _cfg_dropout_masks(draws, b, uncond_prob, random_uncond,
+                                                   video.device)
+        prompt = torch.where(drop_text[:, None, None], null_prompt_emb.expand_as(prompt_emb),
+                             prompt_emb)
+        frames_in = torch.where(drop_image[:, None, None, None, None], torch.zeros_like(video),
+                                video)
+        img_ctx = model.embed_frames(frames_in)
+        return torch.cat([prompt, img_ctx.to(prompt.dtype)], dim=1)
 
 
 def _out(z0, c_concat, context, batch) -> Batch:
@@ -220,7 +226,10 @@ MODALITY_BUILDERS = {
 
 @torch.no_grad()
 def build_batch(modality: str, *args, **kwargs) -> Batch:
-    """The named modality's builder, with the frozen towers under no_grad."""
+    """The named modality's builder, with the frozen towers under no_grad: a
+    span "build" (`core.timing`) holding one "build_encode" per VAE encode
+    and one "build_context"."""
     if modality not in MODALITY_BUILDERS:
         raise NotImplementedError(f"modality {modality!r}; available: {sorted(MODALITY_BUILDERS)}")
-    return MODALITY_BUILDERS[modality](*args, **kwargs)
+    with span("build"):
+        return MODALITY_BUILDERS[modality](*args, **kwargs)

@@ -38,7 +38,7 @@ import torch
 
 from geo4d_tpu_torch.core.draws import RankDraws
 from geo4d_tpu_torch.core.schedules import DiffusionSchedule
-from geo4d_tpu_torch.core.timing import stage
+from geo4d_tpu_torch.core.timing import span, stage
 from geo4d_tpu_torch.parallel.mesh import Mesh
 from geo4d_tpu_torch.parallel.sharding import (ShardLayout, all_gather_full, all_reduce_mean,
                                                reduce_scatter_mean)
@@ -229,7 +229,9 @@ def make_train_step(unet: torch.nn.Module, schedule: DiffusionSchedule, cfg: Tra
     master weights (stage "forward_backward" of an optional StageTimer),
     then AdamW (optax.adamw(lr, weight_decay): b1 0.9, b2 0.999, eps 1e-8,
     decay on every parameter) and the EMA (stage "optimizer"). `state` is
-    updated in place and returned.
+    updated in place and returned. Spans (`core.timing`): "loss" and
+    "backward" inside "forward_backward", "adam" and "ema" inside
+    "optimizer".
 
     With a `mesh`, `batch` holds this rank's rows of the global batch and
     `draws` gives the global batch's draws (the step keeps its rows). The
@@ -269,8 +271,10 @@ def make_train_step(unet: torch.nn.Module, schedule: DiffusionSchedule, cfg: Tra
         with stage(timer, "forward_backward"):
             if mesh is None:
                 load_params_(unet, state.params)
-            loss, metrics = diffusion_loss(unet, schedule, batch, draws, cfg)
-            grads = torch.autograd.grad(loss, weights, allow_unused=True)
+            with span("loss"):
+                loss, metrics = diffusion_loss(unet, schedule, batch, draws, cfg)
+            with span("backward"):
+                grads = torch.autograd.grad(loss, weights, allow_unused=True)
         # an unused parameter's gradient is zero; weight decay still applies
         grads = [torch.zeros_like(w) if g is None else g for g, w in zip(grads, weights)]
         if mesh is not None:
@@ -282,12 +286,14 @@ def make_train_step(unet: torch.nn.Module, schedule: DiffusionSchedule, cfg: Tra
                 metrics = dict(zip(keys, means.unbind()))
         with stage(timer, "optimizer"):
             p = [state.params[n] for n in names]
-            adam_update_(p, grads, [state.exp_avg[n] for n in names],
-                         [state.exp_avg_sq[n] for n in names], state.step + 1,
-                         cfg.learning_rate, weight_decay=cfg.weight_decay)
+            with span("adam"):
+                adam_update_(p, grads, [state.exp_avg[n] for n in names],
+                             [state.exp_avg_sq[n] for n in names], state.step + 1,
+                             cfg.learning_rate, weight_decay=cfg.weight_decay)
             del grads
             state.step += 1
-            ema_update_([state.ema[n] for n in names], p, state.step, cfg)
+            with span("ema"):
+                ema_update_([state.ema[n] for n in names], p, state.step, cfg)
         return state, metrics
 
     return step

@@ -170,6 +170,24 @@ the final `ok` line):
    point counts must equal load_results_dir's. Prints the record on one line
    prefixed `offline`.
 
+20. aligner (run right after phase 7): the aligner's objective kernel
+   (ops/align_objective.py, not yet on the aligner's path) against its plain
+   version on the card, on initialised and calibrated aligners over the
+   analytic scene (20 frames at 64x144 with a shared and with a per-frame
+   focal, and 32 frames at 256x576 in 5 windows of 16, the shape of the
+   benchmark's recon.sintel32), without and with the depth term: relative L2
+   of the loss and of each gradient at most ALIGN_KERNEL_REL, a second launch
+   bit for bit, the loss-only variant equal to the loss; its device time
+   beside its byte bound (at least ALIGN_ROOFLINE_MIN of it at 256x576).
+   Then 500 iterations at 256x576 as `run` does them (CUDA graphs), again,
+   with every iteration eager, and eagerly with PyTorch's deterministic
+   algorithms, over the same predictions: the four runs equal bit for bit
+   (the objective, depth and pose gaps printed); every iteration but one per
+   loss structure replayed, no memory left allocated after the second graph
+   run (the graphs and their pool released); ms per iteration, peak memory
+   and the memory left after each run. The same at 64x144 with the
+   rigid-flow term (three loss structures).
+
 The second-to-last line is a JSON object with one entry per kernel (the
 backward kernels from phases 12 and 14); the last line is
 {"ok": true, "device": {...}}.
@@ -180,6 +198,7 @@ backward kernels from phases 12 and 14); the last line is
     python3 chip_smoke.py --parallel-only       # phases 1-2, 15 and 17 only
     python3 chip_smoke.py --longseq-only        # phases 1-2 and 18 only
     python3 chip_smoke.py --offline-only        # phases 1-2 and 19 only
+    python3 chip_smoke.py --aligner-only        # phases 1-2 and 20 only
 
 `--shapes-only` times the saved (kernel, shape, launches) list through the
 `geo4d_tpu_torch` beside this script; a copy of the script in an unpacked
@@ -1492,6 +1511,195 @@ def align_reference_phase(dev):
           flush=True)
 
 
+# ---------------- the aligner's objective kernel and graphs (phase 20) ----------------
+
+ALIGN_KERNEL_REL = 1e-5      # kernel against its plain version, relative L2
+ALIGN_ROOFLINE_MIN = 0.4     # the kernel's byte bound over its device time, at 256x576
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den else float((a - b).norm())
+
+
+def _aligner_on_scene(dev, sc, **cfg):
+    from geo4d_tpu_torch.alignment.init import init_from_group
+    from geo4d_tpu_torch.alignment.optimizer import AlignerConfig, GroupAligner
+
+    preds = {k: torch.from_numpy(v).to(dev) for k, v in sc["preds"].items()}
+    al = GroupAligner(sc["groups"], preds["pts3d"], preds["conf"], sc["hw"],
+                      invdepth=preds["inv_depth"], trajs=preds["traj"],
+                      config=AlignerConfig(**cfg), **({"target_flows": sc["flows"].to(dev)}
+                                                     if "flows" in sc else {}))
+    init_from_group(al, preds["pts3d"], preds["conf"])
+    return al
+
+
+def _objective_args(al):
+    """The objective op's inputs at the aligner's parameters."""
+    from geo4d_tpu_torch.geometry.se3 import params_to_pose
+    from geo4d_tpu_torch.ops import align_objective as objective
+
+    cfg, p = al.cfg, al.params
+    data = objective.ObjectiveData(al.groups, al.buf["pred_pts"], al.buf["weights"],
+                                   al.buf.get("invdepth"), (al.H, al.W),
+                                   cfg.conf_clamp if cfg.conf_optimize else None,
+                                   cfg.invdepth_valid_thr, cfg.depth_loss_weight)
+    with torch.no_grad():
+        pw = params_to_pose(p["pw_poses"][:, :7])
+        sims = pw[:, :3] * al._pw_scale(p)[:, None, None]
+        return (data, p["log_depth"].detach(), al._focals(p).detach(),
+                params_to_pose(p["poses"])[:, :3], sims, p["s_depth"].detach(),
+                p["t_depth"].detach(), al.valid_depth_group)
+
+
+def objective_kernel_check(what, al, timed):
+    """The kernel against its plain version at the aligner's parameters,
+    without and with the depth term; returns the timings."""
+    from geo4d_tpu_torch.ops import align_objective as objective
+
+    args = _objective_args(al)
+    data = args[0]
+    names = ("log_depth", "focal", "poses", "sims", "s_depth", "t_depth")
+    out = {}
+    for depth in (False, True):
+        with torch.no_grad():
+            lk, fk = objective.align_objective_forward(*args, depth, True)
+            lk2, fk2 = objective.align_objective_forward(*args, depth, True)
+            ln, _ = objective.align_objective_forward(*args, depth, False)
+            lp, fp = objective.align_objective_plain(*args, depth, True)
+        torch.cuda.synchronize()
+        errs = {"loss": _rel_l2(lk, lp)}
+        errs.update({n: _rel_l2(a, b) for n, a, b in zip(names, data.split(fk), data.split(fp))
+                     if depth or n not in ("s_depth", "t_depth")})
+        repeat = torch.equal(lk, lk2) and torch.equal(fk, fk2) and torch.equal(ln, lk)
+        nbytes = 4 * (2 * data.N * data.P + data.E * data.P * (4 + int(depth)))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"loss": float(lk), "worst_rel_l2": max(errs.values()), "repeat": repeat,
+               "bytes": nbytes, "bound_ms": bound}
+        if timed:
+            row["ms"] = median_ms(lambda: objective.align_objective_forward(*args, depth, True))
+            row["loss_only_ms"] = median_ms(
+                lambda: objective.align_objective_forward(*args, depth, False))
+            row["plain_ms"] = median_ms(
+                lambda: objective.align_objective_plain(*args, depth, True), reps=5, warmup=1)
+            row["roofline"] = bound / row["ms"]
+        print(f"aligner objective {what} depth={depth}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()) + " (relative L2, limit "
+            f"{ALIGN_KERNEL_REL}); " + json.dumps(row), flush=True)
+        if not max(errs.values()) <= ALIGN_KERNEL_REL:
+            raise AssertionError(f"aligner objective {what}: the kernel disagrees with its plain "
+                                 f"version")
+        if not repeat:
+            raise AssertionError(f"aligner objective {what}: a second launch differs")
+        out[f"depth={depth}"] = row
+    return out
+
+
+def _aligner_run(al, graphs):
+    """One `run` of the aligner, with CUDA graphs or every iteration eager:
+    ms per iteration (the benchmark's align_iter_ms: both phases and the
+    calibration), peak memory, memory left after it and counters."""
+    from geo4d_tpu_torch.core import timing
+
+    rec, timer = timing.SpanRecorder(), timing.StageTimer(al.device)
+    al.capture_iterations = graphs
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with timing.recording(rec):
+        al.run(timer=timer)
+    torch.cuda.synchronize()
+    sec = timer.seconds
+    return {"ms_per_iter": (sec["align_phase1"] + sec["calibrate"] + sec["align_phase2"]) * 1e3
+            / al.cfg.n_iter, "peak_gib": (torch.cuda.max_memory_allocated() - before) / 2 ** 30,
+            "left_mib": (torch.cuda.memory_allocated() - before) / 2 ** 20, **rec.totals(),
+            "final_loss": al.final_loss}
+
+
+def graph_against_eager(what, dev, sc, structures, **cfg):
+    """`run` with CUDA graphs twice, with every iteration eager, and eagerly
+    with PyTorch's deterministic algorithms (as the benchmark's reference
+    aligner runs) over the same predictions: all four equal bit for bit;
+    counters, memory."""
+    runs, info = {}, {}
+    for name, graphs, fixed in (("graph", True, False), ("eager", False, False),
+                                ("graph_again", True, False), ("eager_deterministic", False, True)):
+        al = _aligner_on_scene(dev, sc, **cfg)
+        torch.use_deterministic_algorithms(fixed, warn_only=True)
+        try:
+            info[name] = _aligner_run(al, graphs)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        runs[name] = al
+    n_iter = runs["graph"].cfg.n_iter
+    with torch.no_grad():
+        obj = {k: float(al.loss_fn(al.params, True)) for k, al in runs.items()}
+
+    def gaps(a, b):
+        ra, rb = runs[a], runs[b]
+        return {"objective": abs(obj[a] - obj[b]) / abs(obj[b]),
+                "depth": _rel_l2(torch.from_numpy(ra.get_depthmaps()),
+                                 torch.from_numpy(rb.get_depthmaps())),
+                "poses": _rel_l2(torch.from_numpy(ra.get_im_poses()),
+                                 torch.from_numpy(rb.get_im_poses())),
+                "equal": all(torch.equal(ra.params[k], rb.params[k]) for k in rb.params)}
+
+    out = {"graph_vs_eager": gaps("graph", "eager"),
+           "graph_again_vs_graph": gaps("graph_again", "graph"),
+           "eager_vs_deterministic": gaps("eager", "eager_deterministic")}
+    print(f"aligner graphs {what}: over the same predictions: " + "; ".join(
+        f"{k} " + ", ".join(f"{n} {v:.3e}" if n != "equal" else f"bit for bit {v}"
+                            for n, v in g.items()) for k, g in out.items())
+          + "; " + json.dumps(info), flush=True)
+    if not all(g["equal"] for g in out.values()):
+        raise AssertionError(f"aligner graphs {what}: the runs differ")
+    for name in ("graph", "graph_again"):
+        if not (info[name].get("align_eager_iters") == structures
+                and info[name].get("align_graph_replays") == n_iter - structures):
+            raise AssertionError(f"aligner graphs {what}: {name}: counters off")
+    for name in ("eager", "eager_deterministic"):
+        if not (info[name].get("align_eager_iters") == n_iter
+                and not info[name].get("align_graph_replays")):
+            raise AssertionError(f"aligner graphs {what}: {name}: counters off")
+    # a run after the first: one-time allocations of the process are done
+    if not info["graph_again"]["left_mib"] < 1:
+        raise AssertionError(f"aligner graphs {what}: {info['graph_again']['left_mib']:.1f} MiB "
+                             f"left after a run")
+    return {"gaps": out, **info}
+
+
+def aligner_phase(dev):
+    """Phase 20: the objective kernel and the aligner's CUDA graphs."""
+    from geo4d_tpu_torch.geometry.warp import depth_based_flow
+    from geo4d_tpu_torch.tools.profile_aligner import synthetic_scene
+
+    small = synthetic_scene()
+    big = synthetic_scene(n=32, h=256, w=576, focal=480.0)
+    out = {"kernel": {}}
+    for what, sc, cfg, timed in (("64x144", small, {}, False),
+                                 ("64x144 per-frame focal", small, {"shared_focal": False}, False),
+                                 ("256x576", big, {}, True)):
+        al = _aligner_on_scene(dev, sc, **cfg)
+        al.calibrate()
+        out["kernel"][what] = objective_kernel_check(what, al, timed)
+    for row in out["kernel"]["256x576"].values():
+        if not row["roofline"] >= ALIGN_ROOFLINE_MIN:
+            raise AssertionError(f"aligner objective: {row['roofline']:.2f} of the byte bound "
+                                 f"(at least {ALIGN_ROOFLINE_MIN})")
+    out["graphs"] = graph_against_eager("256x576", dev, big, 2)
+    h, w = small["hw"]
+    K = torch.tensor([[small["focal"], 0, w / 2], [0, small["focal"], h / 2], [0, 0, 1]])
+    poses = torch.from_numpy(small["poses"]).float()
+    flows, _ = depth_based_flow(torch.from_numpy(small["depths"]).float()[:-1], poses[:-1],
+                                poses[1:], K)
+    out["graphs_flow"] = graph_against_eager("64x144 flow", dev, dict(small, flows=flows), 3,
+                                             flow_loss_weight=0.1)
+    print("aligner " + json.dumps(out), flush=True)
+    return out
+
+
 # ---------------- training (phases 12-16) ----------------
 
 # (name in the kernels line, source, TPU kernel whose backward it is)
@@ -2580,6 +2788,8 @@ def main() -> int:
                     help="phases 1-2, train_repeat (15) and the parallel phase (17) only")
     ap.add_argument("--offline-only", action="store_true",
                     help="phases 1-2 and the offline tools' phase (19) only")
+    ap.add_argument("--aligner-only", action="store_true",
+                    help="phases 1-2 and the aligner's objective kernel and graphs (20) only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2616,6 +2826,10 @@ def main() -> int:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
         parallel_phase(dev, train_repeat_phase(dev))
+        return 0
+    if args.aligner_only:
+        aligner_phase(dev)
+        check_foreign()
         return 0
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     atexit.register(shutil.rmtree, work, True)
@@ -2664,6 +2878,7 @@ def main() -> int:
         for name, opts in ATTENTION_OPTIONS.items():
             reference_phase(dev, name, **opts)
     align_reference_phase(dev)
+    aligner_phase(dev)
     bwd_results, bwd_totals, bwd_launches, plain_run = training_phases(dev)
     parallel_phase(dev, plain_run)
 

@@ -9,7 +9,8 @@ Same subpackage layout as the JAX package, channels-last activations:
               sampler, data module and crops, the training-set
               preprocessors, habitat crops and the ScanNet .sens reader
   ops/        kernel gate and loader; GroupNorm, spatial and temporal
-              attention wrappers, each with its plain PyTorch version
+              attention and the aligner's objective wrappers, each with
+              its plain PyTorch version
   csrc/       the hand-written CUDA kernels (built with nvcc at first use)
               and the host JPEG decoder and encoder (built with g++ at
               first use)

@@ -21,13 +21,20 @@ Two phases of Adam (b1 = b2 = 0.9, eps 1e-8 outside the square root, a
 linear or cosine learning-rate schedule), with the iteration-150
 calibration between them. One optimizer carries its moments and step count
 from phase 1 into phase 2, so `calibrate` writes its values into the
-existing parameter tensors in place. Layout: plain (N, P, 3) point tensors
+existing parameter and gate tensors in place. The frame gathers sum their
+gradients in a fixed order, so a run repeats bit for bit. On CUDA each loss
+structure (phase 1; phase 2; a flow term that switches on mid-phase)
+computes its first iteration's loss and gradients eagerly and every later
+one by replaying one CUDA graph of them; the fused Adam step stays eager,
+so a replayed iteration does the eager one's arithmetic bit for bit. On
+the CPU every iteration is eager. Layout: plain (N, P, 3) point tensors
 and index gathers, all on the device of the predictions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -35,7 +42,7 @@ import numpy as np
 import torch
 
 from geo4d_tpu_torch.core.device import default_device
-from geo4d_tpu_torch.core.timing import span, stage
+from geo4d_tpu_torch.core.timing import count, span, stage
 from geo4d_tpu_torch.evals.depth import lad_align_irls
 from geo4d_tpu_torch.evals.trajectory import Trajectory, align_trajectory_with_eval
 from geo4d_tpu_torch.geometry.se3 import params_to_pose, pose_to_params
@@ -97,6 +104,56 @@ def _lr_at(step: int, cfg: AlignerConfig) -> float:
     return cfg.lr + (cfg.lr_min - cfg.lr) * t
 
 
+class _GatherFrames(torch.autograd.Function):
+    """The rows x[index] of per-frame rows x (N, ...). The backward sums
+    each frame's copies one addition at a time, in the order its row of
+    `slots` (N, K; entries ascending, padded with len(index)) lists them:
+    PyTorch's deterministic index_add does the same, and the default
+    backward of index_select adds atomically in whatever order the device
+    takes, so two runs would differ in the last bits."""
+
+    @staticmethod
+    def forward(ctx, x, index, slots):
+        ctx.save_for_backward(slots)
+        ctx.rows = x.shape[0]
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (slots,) = ctx.saved_tensors
+        padded = torch.cat([grad, grad.new_zeros((1,) + grad.shape[1:])])
+        out = grad.new_zeros((ctx.rows,) + grad.shape[1:])
+        for k in range(slots.shape[1]):
+            out.add_(padded.index_select(0, slots[:, k]))
+        return out, None, None
+
+
+@functools.cache
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream the aligner's CUDA graphs are captured and replayed on
+    (capture needs a stream other than the default one), one per device
+    for the process, so that the memory cached for it is reused."""
+    return torch.cuda.Stream(device=device)
+
+
+class _IterationGraph:
+    """`fn` (an iteration's loss and gradients) captured in a CUDA graph on
+    the current stream: `loss` is its output, `replay` runs it again."""
+
+    def __init__(self, key: tuple, fn):
+        self.key = key
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.capture_begin()
+        try:
+            self.loss = fn()
+        finally:
+            self.graph.capture_end()
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        return self.loss
+
+
 class GroupAligner:
     """Optimizer over stacked window predictions.
 
@@ -135,6 +192,14 @@ class GroupAligner:
             "weights": f32(weights).reshape(G, S, P),
             "e_all": torch.as_tensor(self.groups.reshape(-1), device=dev),
         }
+        # each frame's entries of e_all, ascending, padded with G * S
+        flat = self.groups.reshape(-1)
+        counts = np.bincount(flat, minlength=self.N)
+        slots = np.full((self.N, int(counts.max())), G * S, np.int64)
+        by_frame = np.split(np.argsort(flat, kind="stable"), np.cumsum(counts)[:-1])
+        for n, entries in enumerate(by_frame):
+            slots[n, :len(entries)] = entries
+        self.buf["frame_slots"] = torch.as_tensor(slots, device=dev)
         self.has_depth = invdepth is not None
         self.has_traj = trajs is not None
         if self.has_depth:
@@ -172,7 +237,8 @@ class GroupAligner:
             p.requires_grad_(k not in ("s_depth", "t_depth"))
         self.pnp_failures = 0               # frames left at the identity pose by init
         self.final_loss: Optional[float] = None   # set by run()
-        # phase-2 window gates (set by calibrate)
+        # phase-2 window gates (written in place by calibrate: a captured
+        # iteration reads them where they are)
         self.valid_depth_group = torch.ones(G, device=dev)
         self.valid_traj_group = torch.zeros(G, device=dev)
         self._log_depth_init: Optional[torch.Tensor] = None
@@ -226,6 +292,10 @@ class GroupAligner:
         poses = params_to_pose(params["poses"])
         return rel @ poses[:, :3, :3].transpose(-1, -2) + poses[:, None, :3, 3]
 
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-frame rows x (N, ...) -> each window slot's frame's (G * S, ...)."""
+        return _GatherFrames.apply(x, self.buf["e_all"], self.buf["frame_slots"])
+
     def loss_fn(self, params, use_depth_traj: bool, iter_frac: float = 1.0) -> torch.Tensor:
         """The full objective at `params` (a dict like `self.params`)."""
         cfg, buf = self.cfg, self.buf
@@ -236,13 +306,13 @@ class GroupAligner:
         pw = torch.cat([pw[:, :3] * s[:, None, None], pw[:, 3:]], dim=1)     # sim3 (G, 4, 4)
         aligned = buf["pred_pts"] @ pw[:, None, :3, :3].transpose(-1, -2) + pw[:, None, None, :3, 3]
         w = torch.clamp(buf["weights"], max=cfg.conf_clamp) if cfg.conf_optimize else buf["weights"]
-        proj_e = proj.index_select(0, buf["e_all"]).reshape(G, S, P, 3)
+        proj_e = self._gather(proj).reshape(G, S, P, 3)
         d = proj_e - aligned
         loss = (torch.sqrt((d * d).sum(-1) + 1e-12) * w).sum() / self.total_area
 
         if use_depth_traj and self.has_depth:
             inv_pred = 1.0 / (torch.exp(params["log_depth"]) + 1e-6)
-            inv_pred_e = inv_pred.index_select(0, buf["e_all"]).reshape(G, S, P)
+            inv_pred_e = self._gather(inv_pred).reshape(G, S, P)
             dmask = (buf["invdepth"] > cfg.invdepth_valid_thr).float()
             dmask = dmask * self.valid_depth_group[:, None, None]
             scaled = (buf["invdepth"] * params["s_depth"][:, None, None]
@@ -258,7 +328,7 @@ class GroupAligner:
                              dim=-1)
             traj = torch.cat([traj, buf["trajs"][..., 3:, :]], dim=-2)
             moved = RT[:, None] @ traj
-            poses_e = params_to_pose(params["poses"]).index_select(0, buf["e_all"])
+            poses_e = self._gather(params_to_pose(params["poses"]))
             per = _rel_pose_loss(moved.reshape(-1, 4, 4), poses_e,
                                  cfg.translation_weight).reshape(G, S)
             loss = loss + (per * self.valid_traj_group[:, None]).sum() * cfg.traj_loss_weight
@@ -298,57 +368,95 @@ class GroupAligner:
     def focal_frozen(self) -> bool:
         return not self.params["focal"].requires_grad
 
+    # Tests set this False on an aligner to run every CUDA iteration
+    # eagerly: the arithmetic a replayed iteration has to equal bit for bit.
+    capture_iterations = True
+
+    def _structure(self, it: int, use_depth_traj: bool) -> tuple:
+        """The loss terms live at iteration `it`: one CUDA graph each."""
+        flow = self.has_flow and it / self.cfg.n_iter >= self.cfg.flow_loss_start_frac
+        return use_depth_traj, flow
+
     def run(self, verbose: bool = False, timer=None) -> float:
         """Two-phase optimization: [0, start) point maps only; calibration;
         [start, n_iter) with disparity and trajectory anchors. Returns the
         loss at the last iteration (before its update). Stages
         "align_phase1", "calibrate", "align_phase2"; each iteration is a
-        span "align_iter" with children "align_loss", "align_backward" and
-        "align_adam" (`core.timing`)."""
+        span "align_iter" (`core.timing`). An eager iteration has children
+        "align_loss", "align_backward" and "align_adam"; on CUDA each loss
+        structure's second iteration captures its loss and gradients in a
+        CUDA graph (span "align_capture" before it) and it and every later
+        one replay it, with the child "align_adam" only. The graphs and
+        their memory are released before returning. Counters
+        "align_eager_iters" and "align_graph_replays" count both kinds."""
         cfg = self.cfg
         start = min(cfg.depth_traj_start_iter, cfg.n_iter)
         trainable = [self.params[k] for k in PARAM_NAMES if self.params[k].requires_grad]
-        opt = torch.optim.Adam(trainable, lr=cfg.lr, betas=(0.9, 0.9), eps=1e-8,
-                               fused=self.device.type == "cuda")
+        cuda = self.device.type == "cuda"
+        opt = torch.optim.Adam(trainable, lr=cfg.lr, betas=(0.9, 0.9), eps=1e-8, fused=cuda)
         if cfg.depth_regularize_weight > 0:
             self._log_depth_init = self.params["log_depth"].detach().clone()
+        graphs = cuda and self.capture_iterations
+        losses = torch.zeros(cfg.n_iter, device=self.device)
+
+        def gradients(it, use_depth_traj):
+            with span("align_loss"):
+                loss = self.loss_fn(self.params, use_depth_traj, it / cfg.n_iter)
+            with span("align_backward"):
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                for p in trainable:
+                    # a trainable leaf outside this phase's loss (traj_align
+                    # in phase 1) still takes an Adam step with a zero
+                    # gradient: optax counts steps globally
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            return loss.detach()
+
+        graph: Optional[_IterationGraph] = None
+        warm = set()            # the structures whose eager iteration has run
 
         def phase(iters, use_depth_traj):
-            losses = []
+            nonlocal graph
             for it in iters:
+                key = self._structure(it, use_depth_traj)
+                if graphs and key in warm and (graph is None or graph.key != key):
+                    graph = None                    # frees the last structure's graph
+                    opt.zero_grad(set_to_none=True)
+                    with span("align_capture"):
+                        graph = _IterationGraph(key, lambda: gradients(it, use_depth_traj))
                 with span("align_iter"):
-                    with span("align_loss"):
-                        loss = self.loss_fn(self.params, use_depth_traj, it / cfg.n_iter)
-                    with span("align_backward"):
-                        opt.zero_grad(set_to_none=True)
-                        loss.backward()
-                        for p in trainable:
-                            # a trainable leaf outside this phase's loss
-                            # (traj_align in phase 1) still takes an Adam
-                            # step with a zero gradient: optax counts steps
-                            # globally
-                            if p.grad is None:
-                                p.grad = torch.zeros_like(p)
+                    if graph is not None and graph.key == key:
+                        losses[it].copy_(graph.replay())
+                        count("align_graph_replays")
+                    else:
+                        losses[it].copy_(gradients(it, use_depth_traj))
+                        warm.add(key)
+                        count("align_eager_iters")
                     with span("align_adam"):
                         opt.param_groups[0]["lr"] = _lr_at(it, cfg)
                         opt.step()
-                    losses.append(loss.detach())
-            return losses
 
-        with torch.enable_grad():
-            with stage(timer, "align_phase1"):
-                losses1 = phase(range(start), False)
-            with stage(timer, "calibrate"):
-                if self.has_depth or self.has_traj:
-                    self.calibrate()
-            if verbose and losses1:
-                print(f"[aligner] phase1 loss {float(losses1[-1]):.5f}")
-            with stage(timer, "align_phase2"):
-                losses2 = phase(range(start, cfg.n_iter), True)
-        if losses2:
-            final = float(losses2[-1])
-        else:
-            final = float(losses1[-1]) if start > 0 else 0.0
+        stream = _side_stream(self.device) if graphs else None
+        if graphs:
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+        try:
+            with torch.enable_grad(), torch.cuda.stream(stream):
+                with stage(timer, "align_phase1"):
+                    phase(range(start), False)
+                with stage(timer, "calibrate"):
+                    if self.has_depth or self.has_traj:
+                        self.calibrate()
+                if verbose and start > 0:
+                    print(f"[aligner] phase1 loss {float(losses[start - 1]):.5f}")
+                with stage(timer, "align_phase2"):
+                    phase(range(start, cfg.n_iter), True)
+        finally:
+            graph = None
+            opt.zero_grad(set_to_none=True)     # the last graph's gradients live in its pool
+            if graphs:
+                torch.cuda.current_stream(self.device).wait_stream(stream)
+        final = float(losses[-1]) if cfg.n_iter > 0 else 0.0
         if verbose:
             print(f"[aligner] final loss {final:.5f}")
         self.final_loss = final
@@ -375,7 +483,7 @@ class GroupAligner:
             delta = hit.sum(-1) / torch.clamp(mask.sum(-1), min=1)
             self.params["s_depth"].copy_(s)
             self.params["t_depth"].copy_(t)
-            self.valid_depth_group = (delta >= cfg.delta_valid_thr).float()
+            self.valid_depth_group.copy_(delta >= cfg.delta_valid_thr)
 
         if self.has_traj:
             im_poses = self.get_im_poses()
@@ -397,7 +505,7 @@ class GroupAligner:
                 if rpe_rot < cfg.rpe_rot_valid_deg:
                     valid[g] = 1.0
             self.params["traj_align"].copy_(torch.from_numpy(ta))
-            self.valid_traj_group = torch.from_numpy(valid).to(self.device)
+            self.valid_traj_group.copy_(torch.from_numpy(valid))
 
     # ---------------- presets ----------------
 

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "temporal_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "temporal_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
                                _P],
+    "align_objective": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
 }
 
 

@@ -7,12 +7,15 @@ and moves, noisy window predictions) of 20 frames at 256x576 in windows of
 16 with stride 4, the shapes of the smoke run's `reconstruct`. The aligner is
 initialised, warmed up by one un-timed run, then run again (a fresh aligner
 each time; ITERS iterations, START of them in phase 1, calibrate, the rest
-in phase 2):
+in phase 2; as `run` does them on CUDA, each loss structure's first
+iteration eager and the rest replays of its CUDA graph of the loss and
+gradients, each followed by the eager Adam step):
 once timed with the device synchronised, once under torch.profiler. Prints
 the init and PnP time of each of the three initialisations, the wall time
-per iteration, the device time per iteration (kernels), the kernel launch
-count per iteration and the PyTorch ops whose kernels take the most device
-time.
+per iteration, the replayed and eager iterations, the device time per
+iteration (kernels), the launches per iteration (kernel and graph launch
+calls from the host, and kernels on the device) and the kernels that take
+the most device time.
 """
 
 from __future__ import annotations
@@ -75,7 +78,7 @@ def main() -> int:
 
     from geo4d_tpu_torch.alignment.init import init_from_group
     from geo4d_tpu_torch.alignment.optimizer import AlignerConfig, GroupAligner
-    from geo4d_tpu_torch.core.timing import StageTimer
+    from geo4d_tpu_torch.core.timing import SpanRecorder, StageTimer, recording
 
     dev = torch.device("cuda", 0)
     sc = synthetic_scene(h=256, w=576, focal=480.0)
@@ -98,23 +101,29 @@ def main() -> int:
     torch.cuda.synchronize(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
     al = aligner()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    rec = SpanRecorder()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            recording(rec):
         al.run()
         torch.cuda.synchronize(dev)
     ka = prof.key_averages()
+    counts = rec.totals()
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
     # kernels only: an op's self device time already counts the kernels it launched
-    device_us = sum(e.self_device_time_total for e in ka if e.device_type == DeviceType.CUDA)
+    device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                     "cudaLaunchKernelExC"))
+                                                     "cudaLaunchKernelExC", "cudaGraphLaunch"))
     print(f"profile_aligner: {sc['groups'].shape[0]} windows x {sc['groups'].shape[1]} frames at "
           f"{sc['hw'][0]}x{sc['hw'][1]}, {ITERS} iterations ({START} in phase 1); "
-          f"PnP failures {al.pnp_failures}")
+          f"PnP failures {al.pnp_failures}; replayed iterations "
+          f"{counts.get('align_graph_replays', 0)}, eager {counts.get('align_eager_iters', 0)}")
     print(f"profile_aligner: wall {wall_ms:.3f} ms per iteration (no profiler); device "
-          f"{device_us / 1e3 / ITERS:.3f} ms per iteration; {launches / ITERS:.1f} "
-          f"kernel launches per iteration")
-    ops = [e for e in ka if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:TOP_OPS]:
-        print(f"profile_aligner: {e.key[:40]:40s} calls {e.count:6d} self device "
+          f"{device_us / 1e3 / ITERS:.3f} ms per iteration; {launches / ITERS:.1f} kernel and "
+          f"graph launch calls and {sum(e.count for e in kernels) / ITERS:.1f} device kernels per "
+          f"iteration")
+    # by kernel: a replayed graph's kernels have no PyTorch op around them
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP_OPS]:
+        print(f"profile_aligner: {e.key[:40]:40s} calls {e.count:6d} device "
               f"{e.self_device_time_total / 1e3:9.3f} ms "
               f"({100 * e.self_device_time_total / max(device_us, 1e-9):5.1f}%)")
     return 0

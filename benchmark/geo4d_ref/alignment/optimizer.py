@@ -24,6 +24,11 @@ calibration between them. One optimizer carries its moments and step count
 from phase 1 into phase 2, so `calibrate` writes its values into the
 existing parameter tensors in place. Layout: plain (N, P, 3) point tensors
 and index gathers, all on the device of the predictions.
+
+With `record_states` set, `run` keeps copies of three states (`state()`:
+the parameters and the two phase-2 gates) in `states`: "init" before the
+first iteration, "calibrated" right after the calibration, "end" after the
+last iteration. Copying leaves the arithmetic as it is.
 """
 
 from __future__ import annotations
@@ -166,6 +171,18 @@ class GroupAligner:
         self.valid_depth_group = torch.ones(G, device=dev)
         self.valid_traj_group = torch.zeros(G, device=dev)
         self._log_depth_init: Optional[torch.Tensor] = None
+        self.record_states = False
+        self.states: Dict[str, dict] = {}
+
+    def state(self) -> dict:
+        """Copies of the parameters and the two phase-2 gates."""
+        return {"params": {k: p.detach().clone() for k, p in self.params.items()},
+                "valid_depth_group": self.valid_depth_group.clone(),
+                "valid_traj_group": self.valid_traj_group.clone()}
+
+    def _record(self, name: str):
+        if self.record_states:
+            self.states[name] = self.state()
 
     # ---------------- derived quantities ----------------
 
@@ -266,12 +283,14 @@ class GroupAligner:
                 losses.append(loss.detach())
             return losses
 
+        self._record("init")
         with torch.enable_grad():
             with stage(timer, "align_phase1"):
                 losses1 = phase(range(start), False)
             with stage(timer, "calibrate"):
                 if self.has_depth or self.has_traj:
                     self.calibrate()
+            self._record("calibrated")
             if verbose and losses1:
                 print(f"[aligner] phase1 loss {float(losses1[-1]):.5f}")
             with stage(timer, "align_phase2"):
@@ -283,6 +302,7 @@ class GroupAligner:
         if verbose:
             print(f"[aligner] final loss {final:.5f}")
         self.final_loss = final
+        self._record("end")
         return final
 
     # ---------------- iteration-150 calibration ----------------

@@ -51,7 +51,7 @@ def judge(numbers: dict, limits: dict) -> tuple:
     out, ok = {}, True
     for name, limit in limits.items():
         value = numbers.get(name)
-        good = value is not None and np.isfinite(value) and value <= limit
+        good = bool(value is not None and np.isfinite(value) and value <= limit)
         ok = ok and good
         out[name] = {"value": value, "limit": limit}
     return ok, out

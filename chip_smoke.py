@@ -52,7 +52,10 @@ the final `ok` line):
    `save_results_dir(..., dynamic_masks=...)` with the slice's scene must
    write enlarged_dynamic_mask_<i>.png with the masks' pixels.
 9. resolutions: one window of `predict_windows` (1 DDIM step, full width)
-   at Bonn's 512x384 and KITTI's 640x192; every (kernel, shape) it launched
+   at Bonn's 512x384 and KITTI's 640x192, and `predict_video` over 30
+   frames at 640x192: five windows of 16 (the last a tail window) as one
+   80-frame UNet call (window_batch 5) and a 14-frame last encoder chunk, as
+   the benchmark's recon.kitti110; every (kernel, shape) they launched
    is checked against its plain version and a second launch (not timed);
    then every `decode_modality` layout once on a 16-frame window of random
    latents at 576x256.
@@ -197,6 +200,7 @@ backward kernels from phases 12 and 14); the last line is
     python3 chip_smoke.py --train-only          # phases 1-2 and 12-16 only
     python3 chip_smoke.py --parallel-only       # phases 1-2, 15 and 17 only
     python3 chip_smoke.py --longseq-only        # phases 1-2 and 18 only
+    python3 chip_smoke.py --resolutions-only    # phases 1-2 and 9 only
     python3 chip_smoke.py --offline-only        # phases 1-2 and 19 only
     python3 chip_smoke.py --aligner-only        # phases 1-2 and 20 only
 
@@ -732,6 +736,11 @@ TAG = 202021.25     # the Sintel .dpt / .cam file tag
 SINTEL_HW = (436, 1024)
 # (W, H) of the evaluation datasets whose shapes the slice does not reach
 RESOLUTIONS = {"bonn": (512, 384), "kitti": (640, 192)}
+# the resolutions phase's batched KITTI case: 30 frames make 5 windows (the
+# last a tail window) in one 80-frame UNet call at window_batch 5, and end
+# the VAE encoder's and CLIP's 16-frame chunks with a 14-frame chunk, as the
+# benchmark's recon.kitti110 (110 frames) does
+KITTI_BATCH, KITTI_BATCH_FRAMES = 5, 30
 # decode_modality runs at the slice's resolution
 DECODE_HW = (256, 576)
 
@@ -938,31 +947,44 @@ def evaluate_phase(dev, model, text_ctx, uncond_text_ctx, scene):
 
 
 def resolutions_phase(dev, model, text_ctx):
-    """One window of predict_windows at Bonn's and KITTI's resolutions, every
-    (kernel, shape) it launched checked against its plain version; then
-    every decode_modality layout on random latents at 576x256. Returns the
-    (kernel, shape) pairs checked."""
-    from geo4d_tpu_torch.pipeline.inference import InferenceConfig, WindowPredictor
+    """One window of predict_windows at Bonn's and KITTI's resolutions, and
+    predict_video over KITTI_BATCH_FRAMES frames at KITTI's resolution
+    (KITTI_BATCH windows in one UNet call, as the benchmark's recon.kitti110
+    runs them), every (kernel, shape) each launched checked against its plain
+    version; then every decode_modality layout on random latents at
+    576x256. Returns the (kernel, shape) pairs checked."""
+    from geo4d_tpu_torch.pipeline.inference import (InferenceConfig, WindowPredictor,
+                                                    sliding_windows)
 
     checked = set()
     stats = kernel_stats()
-    predictor = WindowPredictor(model, InferenceConfig(ddim_steps=1), device=dev)
     g = torch.Generator(device=dev).manual_seed(2)
     rng = np.random.default_rng(2)
-    for name, (w, h) in RESOLUTIONS.items():
-        frames = rng.integers(0, 256, size=(1, 16, h, w, 3), dtype=np.uint8)
+    cases = [(name, hw, 1) for name, hw in RESOLUTIONS.items()]
+    cases.append(("kitti_batch", RESOLUTIONS["kitti"], KITTI_BATCH))
+    for name, (w, h), batch in cases:
+        predictor = WindowPredictor(model, InferenceConfig(ddim_steps=1, window_batch=batch),
+                                    device=dev)
         for st in stats.values():
             st.reset()
         t0 = time.perf_counter()
-        out = predictor.predict_windows(frames, text_ctx, 24, seed=0)
+        if batch == 1:
+            what = "predict_windows (1 window, 1 DDIM step)"
+            out = predictor.predict_windows(
+                rng.integers(0, 256, size=(1, 16, h, w, 3), dtype=np.uint8), text_ctx, 24, seed=0)
+        else:
+            what = f"predict_video ({batch} windows in one UNet call, 1 DDIM step)"
+            n = KITTI_BATCH_FRAMES
+            out = predictor.predict_video(
+                rng.integers(0, 256, size=(n, h, w, 3), dtype=np.uint8),
+                sliding_windows(n, 16, 4), text_ctx, 10, seed=0)
         wall = time.perf_counter() - t0
         check_path_launches(f"resolutions {name} {w}x{h}", stats)
         for k in ("pts3d", "conf", "inv_depth"):
-            if out[k].shape[:4] != (1, 16, h, w) or not np.isfinite(out[k]).all():
+            if out[k].shape[:4] != (batch, 16, h, w) or not np.isfinite(out[k]).all():
                 raise AssertionError(f"resolutions {name}: {k} {out[k].shape} or non-finite")
         by_shape = {k: dict(st.by_shape) for k, st in stats.items()}
-        print(f"resolutions {name} {w}x{h}: predict_windows (1 window, 1 DDIM step) "
-              f"{wall:.3f} s", flush=True)
+        print(f"resolutions {name} {w}x{h}: {what} {wall:.3f} s", flush=True)
         with torch.no_grad():
             for kernel, counts in by_shape.items():
                 for key, n in sorted(counts.items(), key=lambda kv: -kv[1]):
@@ -2790,6 +2812,8 @@ def main() -> int:
                     help="phases 1-2 and the offline tools' phase (19) only")
     ap.add_argument("--aligner-only", action="store_true",
                     help="phases 1-2 and the aligner's objective kernel and graphs (20) only")
+    ap.add_argument("--resolutions-only", action="store_true",
+                    help="phases 1-2 and the resolutions phase (9) only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2837,13 +2861,17 @@ def main() -> int:
         offline_phase(write_results_dir(os.path.join(work, "results")), work)
         check_foreign()
         return 0
-    if args.longseq_only:
+    if args.longseq_only or args.resolutions_only:
         from geo4d_tpu_torch.cli.common import prepare_inference_params
         from geo4d_tpu_torch.models.presets import flagship, init_random_
 
         model = init_random_(flagship(), dev, seed=0).eval()
-        prepare_inference_params(model, PROMPT)
-        longseq_phase(dev, model)
+        text_ctx, _ = prepare_inference_params(model, PROMPT)
+        if args.resolutions_only:
+            resolutions_phase(dev, model, text_ctx)
+        else:
+            longseq_phase(dev, model)
+        check_foreign()
         return 0
     if args.train_only:
         results, totals, launches, _ = training_phases(dev)

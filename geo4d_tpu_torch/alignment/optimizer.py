@@ -168,7 +168,8 @@ class GroupAligner:
                    term, live when config.flow_loss_weight > 0
     Everything lives on `device`: by default the device of `pred_pts` when
     it is a tensor, else the CUDA device (an error where there is none);
-    pass device="cpu" to run on the CPU."""
+    pass device="cpu" to run on the CPU. Construction counts the window
+    points held, G * S * P ("align_points", `core.timing`)."""
 
     def __init__(self, groups, pred_pts, weights, imshape: Tuple[int, int], invdepth=None,
                  trajs=None, config: AlignerConfig = AlignerConfig(), target_flows=None,
@@ -187,6 +188,7 @@ class GroupAligner:
             return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
         G, S, P = self.G, self.S, self.P
+        count("align_points", G * S * P)
         self.buf: Dict[str, torch.Tensor] = {
             "pred_pts": f32(pred_pts).reshape(G, S, P, 3),
             "weights": f32(weights).reshape(G, S, P),

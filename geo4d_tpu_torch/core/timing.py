@@ -7,7 +7,7 @@ host's interval, and the device's activity is put down to the span open
 when it was launched (the profiler's launch records carry the host time).
 The pipeline opens its spans and counters through `stage`, `span`,
 `request` and `count`; with no recorder installed each is one global
-lookup and a None test.
+lookup and a None test. `current` returns the installed recorder.
 """
 
 from __future__ import annotations
@@ -142,6 +142,11 @@ def recording(rec: SpanRecorder):
         yield rec
     finally:
         _RECORDER, rec._thread = prev, prev_thread
+
+
+def current() -> Optional[SpanRecorder]:
+    """The installed recorder, or None."""
+    return _RECORDER
 
 
 def span(name: str):

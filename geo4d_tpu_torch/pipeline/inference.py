@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from geo4d_tpu_torch.alignment.init import init_from_group
 from geo4d_tpu_torch.alignment.optimizer import AlignerConfig, GroupAligner
 from geo4d_tpu_torch.core.draws import Draws, RankDraws
-from geo4d_tpu_torch.core.timing import request, stage
+from geo4d_tpu_torch.core.timing import count, request, stage
 from geo4d_tpu_torch.geometry.normalize import (
     denormalize_inverse_depth,
     denormalize_pointcloud_bbox2,
@@ -148,12 +148,18 @@ class WindowPredictor:
         }
 
     def _chunks(self, g_total: int):
+        """(start, windows, rows) of each UNet call over `g_total` windows;
+        counts each call ("window_chunks") and the rows it runs beyond its
+        windows ("window_rows_padded"), `core.timing`."""
         bs = self.cfg.window_batch
         if self.mesh is not None:
             world = self.mesh.world_size
             bs = -(-max(bs, world) // world) * world
         for start in range(0, g_total, bs):
-            yield start, min(bs, g_total - start), bs
+            n = min(bs, g_total - start)
+            count("window_chunks")
+            count("window_rows_padded", bs - n)
+            yield start, n, bs
 
     def _rows(self, bs: int) -> slice:
         """The rows of a bs-row chunk that this rank runs."""

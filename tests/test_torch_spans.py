@@ -221,11 +221,14 @@ def test_recorded_reconstruct_is_one_request(recorded_reconstruct):
     assert len(pnp) == 1
     assert [c.name for c in _children(rec, pnp[0])] == ["pnp_prep", "pnp_ransac", "pnp_refine"]
     where = {"pnp_frames": "align_pnp", "pnp_failed": "align_pnp",
-             "align_eager_iters": "align_iter"}
+             "align_eager_iters": "align_iter", "window_chunks": "reconstruct",
+             "window_rows_padded": "reconstruct", "align_points": "reconstruct"}
     assert all(rec.spans[sid].name == where[name] for sid, _, name, _ in rec.counts)
-    # on the CPU every aligner iteration is eager
+    # on the CPU every aligner iteration is eager; one window a UNet call
     assert rec.totals() == {"pnp_frames": FRAMES, "pnp_failed": scene.pnp_failures,
-                            "align_eager_iters": N_ITER}
+                            "align_eager_iters": N_ITER, "window_chunks": scene.G,
+                            "window_rows_padded": 0,
+                            "align_points": scene.G * scene.S * scene.P}
     decodes = [s for s in rec.spans if s.name == "decode"]
     assert len(decodes) == 3
     for d in decodes:

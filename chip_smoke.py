@@ -108,7 +108,19 @@ the final `ok` line):
    of warps and slots); first, K3b's six instances in the built library
    (cuobjdump): registers, no spills, mma.sync and movmatrix in the SASS.
 15. train_repeat: one full-width training step run twice from the same
-   state and batch: loss and state repeat bit for bit.
+   state and batch (the second, a new state of a shape already run, is the
+   step's captured CUDA graph): loss and state repeat bit for bit.
+15b. train_graph: the training step's CUDA graph (training/step.py) at the
+   train.b1 shape (flagship, one 16 x 256 x 576 pc_ray_cross_depth batch):
+   3 steps of make_train_step as it runs (eager, then capture and replay)
+   against 3 steps with `capture` off, from one state with the same draws:
+   each step's loss and every gradient bit for bit (else the largest
+   relative L2 gap), the states after the 3 steps, each step's kernel
+   launches per shape (KernelStats), the counters and the capture span;
+   forward_backward ms per step, max_memory_allocated and
+   max_memory_reserved of each side. Then the same with `remat` on (the
+   capture holds the checkpointed blocks' recomputation). Prints one line
+   prefixed `train_graph` per setting.
 16. train_reference: one tiny-preset step, bf16 on the card against float32
    on the CPU (loss and gradient), and the tiny CLI's 2 + resumed 1 steps
    against 3 uninterrupted steps (the same step-3 loss).
@@ -2138,6 +2150,132 @@ def train_repeat_phase(dev):
     return runs[0][:2]
 
 
+def _graph_side(model, batch, dev, cfg, capture, eager_grads=None):
+    """Three steps of make_train_step(model.unet, ..., cfg) from the state of
+    the module's weights, `capture` forcing the step's rule, with the draws
+    of train_repeat. Without `eager_grads`, each step's gradients are kept
+    on the host; with them (the other side's), each gradient is compared
+    there. Returns the record and the host gradients."""
+    from geo4d_tpu_torch.core.draws import Draws
+    from geo4d_tpu_torch.core.timing import SpanRecorder, StageTimer, recording
+    from geo4d_tpu_torch.training import step as train_step
+
+    names = [n for n, _ in model.unet.named_parameters()]
+    stats = kernel_stats()
+    state = train_step.create_train_state(model.unet)
+    fn = train_step.make_train_step(model.unet, model.schedule, cfg)
+    rule = fn.capture
+    fn.capture = capture
+    grads_seen, gaps, equal = [], [], []
+    adam = train_step.adam_update_
+
+    def recording_adam(params, grads, *a, **k):
+        i = len(gaps) if eager_grads is not None else len(grads_seen)
+        if eager_grads is None:
+            grads_seen.append([g.detach().cpu() for g in grads])
+        else:
+            worst, same = 0.0, True
+            for g, h in zip(grads, eager_grads[i]):
+                want = h.to(dev)
+                if not torch.equal(g, want):
+                    same = False
+                    worst = max(worst, float((g.double() - want.double()).norm()
+                                             / want.double().norm().clamp_min(1e-30)))
+            gaps.append(worst)
+            equal.append(same)
+        return adam(params, grads, *a, **k)
+
+    rec = SpanRecorder()
+    losses, launches, fwd_bwd_ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_step.adam_update_ = recording_adam
+    try:
+        with recording(rec):
+            for i in range(3):
+                before = {k: (dict(s.by_shape), dict(s.backward_by_shape))
+                          for k, s in stats.items()}
+                timer = StageTimer(dev)
+                state, m = fn(state, batch, Draws.seeded([1, 1 + i], dev), timer)
+                losses.append(float(m["loss_simple"]))
+                fwd_bwd_ms.append(timer.seconds["forward_backward"] * 1e3)
+                launches.append({k: ({str(sh): n - before[k][0].get(sh, 0)
+                                      for sh, n in s.by_shape.items()
+                                      if n != before[k][0].get(sh, 0)},
+                                     {str(sh): n - before[k][1].get(sh, 0)
+                                      for sh, n in s.backward_by_shape.items()
+                                      if n != before[k][1].get(sh, 0)})
+                                 for k, s in stats.items()})
+    finally:
+        train_step.adam_update_ = adam
+    torch.cuda.synchronize()
+    out = {"rule": rule, "capture": capture, "losses": losses, "fingerprint":
+           state_fingerprint(state), "launches": launches, "fwd_bwd_ms": fwd_bwd_ms,
+           "counters": rec.totals(),
+           "captures": sum(s.name == "train_capture" for s in rec.spans),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "max_memory_reserved": torch.cuda.max_memory_reserved(dev),
+           "gaps": gaps, "grads_equal": equal, "leaves": len(names)}
+    del state, fn, m
+    torch.cuda.empty_cache()
+    return out, grads_seen
+
+
+def train_graph_phase(dev):
+    """Phase 15b: the step's CUDA graph against its eager steps, with remat
+    off and on (the rule takes the graph in both). Returns the two
+    records."""
+    from geo4d_tpu_torch.training.step import TrainConfig
+
+    model, batch = flagship_train_setup(dev)
+    weights0 = {n: p.detach().clone() for n, p in model.unet.named_parameters()}
+    records = {}
+    for remat in (False, True):
+        cfg = TrainConfig(remat=remat)
+        sides = {}
+        for capture in (False, True):
+            with torch.no_grad():
+                for n, p in model.unet.named_parameters():
+                    p.copy_(weights0[n])
+            if capture:
+                sides["graph"], _ = _graph_side(model, batch, dev, cfg, True, eager)
+            else:
+                sides["eager"], eager = _graph_side(model, batch, dev, cfg, False)
+        del eager
+        e, g = sides["eager"], sides["graph"]
+        rec = {"remat": remat, "eager": e, "graph": g,
+               "losses_equal": e["losses"] == g["losses"],
+               "grads_equal": all(g["grads_equal"]), "grad_gap_max": max(g["gaps"]),
+               "states_equal": e["fingerprint"] == g["fingerprint"],
+               "launches_equal": e["launches"] == g["launches"]}
+        # launches as totals per kernel and step (forward, backward)
+        brief = {k: ({**v, "launches": [{n: [sum(f.values()), sum(b.values())]
+                                         for n, (f, b) in step.items()}
+                                        for step in v["launches"]]}
+                     if isinstance(v, dict) and "launches" in v else v)
+                 for k, v in rec.items()}
+        print("train_graph " + json.dumps(brief), flush=True)
+        records[remat] = rec
+    del model, batch, weights0
+    torch.cuda.empty_cache()
+    for remat, rec in records.items():
+        what = f"train_graph (remat {remat})"
+        g, e = rec["graph"], rec["eager"]
+        if not g["rule"]:
+            raise AssertionError(f"{what}: the step's rule does not take the graph")
+        if not (rec["losses_equal"] and rec["grads_equal"] and rec["states_equal"]):
+            raise AssertionError(f"{what}: the graph's steps differ from the eager ones "
+                                 f"(largest gradient gap {rec['grad_gap_max']})")
+        if not rec["launches_equal"]:
+            raise AssertionError(f"{what}: the graph's steps count other kernel launches")
+        if (g["counters"] != {"train_eager_steps": 1, "train_graph_replays": 2}
+                or g["captures"] != 1):
+            raise AssertionError(f"{what}: counters {g['counters']}, {g['captures']} captures")
+        if e["counters"] != {"train_eager_steps": 3} or e["captures"]:
+            raise AssertionError(f"{what}: eager counters {e['counters']}")
+    return records
+
+
 def train_reference_phase(dev):
     """The tiny preset: one step's loss and gradient in bf16 on the card
     (kernels) against float32 on the CPU (plain versions), same weights,
@@ -2564,7 +2702,7 @@ def parallel_phase(dev, plain_run):
 
 
 def training_phases(dev):
-    """Phases 12-16; cuDNN is held to its deterministic algorithms, so that
+    """Phases 12-16 (15b included); cuDNN is held to its deterministic algorithms, so that
     a training step repeats bit for bit. Returns the backward kernels' rows
     and totals and their launches in the train phase."""
     torch.backends.cudnn.deterministic = True
@@ -2575,6 +2713,7 @@ def training_phases(dev):
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         results, totals = backward_phase(dev, train_bwd, steps, vae_bwd)
     plain_run = train_repeat_phase(dev)
+    train_graph_phase(dev)
     train_reference_phase(dev)
     return results, totals, launches, plain_run
 

@@ -404,3 +404,241 @@ def test_train_cli_needs_cuda_unless_asked_for_cpu(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--data_dir", str(tmp_path), "--out_dir", str(tmp_path / "o"), "--tiny"])
+
+
+# ---------------- the step's CUDA graph: launch accounting, eager rule ----------------
+
+
+class _StandInGraph:
+    """torch.cuda.CUDAGraph's capture and replay calls, on the CPU."""
+
+    def __init__(self):
+        self.calls = []
+
+    def capture_begin(self):
+        self.calls.append("begin")
+
+    def capture_end(self):
+        self.calls.append("end")
+
+    def replay(self):
+        self.calls.append("replay")
+
+
+def _stats_snapshot():
+    from geo4d_tpu_torch.ops import flash_attention, group_norm, temporal_attention
+
+    return [(s.launches, dict(s.by_shape), s.backward_launches, dict(s.backward_by_shape))
+            for s in (group_norm.stats, flash_attention.stats, temporal_attention.stats)]
+
+
+def test_step_graph_charges_captured_launches_to_each_replay():
+    """A capture leaves the kernels' launch counts as they were (a captured
+    launch runs nothing); each replay adds exactly what the capture noted,
+    forward and backward, per shape."""
+    from geo4d_tpu_torch.ops import flash_attention, group_norm, temporal_attention
+
+    group_norm.stats.note_launch((1, 64, 32, True))       # counts from before the capture
+    before = _stats_snapshot()
+
+    def fn():
+        group_norm.stats.note_launch((1, 64, 32, True))
+        group_norm.stats.note_launch((2, 16, 64, False))
+        group_norm.stats.note_backward((1, 64, 32, True))
+        flash_attention.stats.note_launch((1, 256, 256, 5))
+        flash_attention.stats.note_backward((1, 256, 256, 5))
+        temporal_attention.stats.note_backward((64, 16, 320, 5))
+        return "out"
+
+    stand_in = _StandInGraph()
+    g = step._StepGraph(("key",), fn, graph=stand_in)
+    assert stand_in.calls == ["begin", "end"] and g.out == "out" and g.key == ("key",)
+    assert _stats_snapshot() == before
+    for n in (1, 2):
+        assert g.replay() == "out"
+        gn, fa, ta = _stats_snapshot()
+        b_gn, b_fa, b_ta = before
+        assert gn[0] == b_gn[0] + 2 * n and gn[2] == b_gn[2] + n
+        assert gn[1] == {(1, 64, 32, True): b_gn[1][(1, 64, 32, True)] + n,
+                         (2, 16, 64, False): b_gn[1].get((2, 16, 64, False), 0) + n,
+                         **{k: v for k, v in b_gn[1].items()
+                            if k not in ((1, 64, 32, True), (2, 16, 64, False))}}
+        assert gn[3][(1, 64, 32, True)] == b_gn[3].get((1, 64, 32, True), 0) + n
+        assert fa[0] == b_fa[0] + n and fa[2] == b_fa[2] + n
+        assert fa[3][(1, 256, 256, 5)] == b_fa[3].get((1, 256, 256, 5), 0) + n
+        assert ta[0] == b_ta[0] and ta[1] == b_ta[1] and ta[2] == b_ta[2] + n
+    assert stand_in.calls == ["begin", "end", "replay", "replay"]
+
+
+def test_step_graph_restores_counts_when_capture_fails():
+    before = _stats_snapshot()
+
+    def fn():
+        from geo4d_tpu_torch.ops import group_norm
+
+        group_norm.stats.note_launch((3, 8, 8, False))
+        raise RuntimeError("capture failed")
+
+    stand_in = _StandInGraph()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        step._StepGraph(("key",), fn, graph=stand_in)
+    assert stand_in.calls == ["begin", "end"]
+    assert _stats_snapshot() == before
+
+
+def _step_before_graphs(pm, state, batch, draws, cfg):
+    """The training step as it ran before the graph path: the draws and the
+    schedule's host copies inside the loss, in that order, then autograd,
+    AdamW and the EMA."""
+    unet, schedule = pm.unet, pm.schedule
+    names = [n for n, _ in unet.named_parameters()]
+    weights = [p for _, p in unet.named_parameters()]
+    step.load_params_(unet, state.params)
+    z0 = batch["z0"]
+    b, dev = z0.shape[0], z0.device
+    ts = draws.randint(schedule.num_timesteps, (b,))
+    noise = draws.normal(z0.shape)
+    sa = torch.as_tensor(np.asarray(schedule.sqrt_alphas_cumprod), device=dev)
+    sb = torch.as_tensor(np.asarray(schedule.sqrt_one_minus_alphas_cumprod), device=dev)
+    scale_arr = (None if schedule.scale_arr is None
+                 else torch.as_tensor(np.asarray(schedule.scale_arr), device=dev))
+    if cfg.geometry_condition:
+        pats = torch.as_tensor(step.geometry_condition_patterns(cfg.temporal_length),
+                               device=dev).long()
+        frame_on = pats[draws.randint(pats.shape[0], (b,))]
+        t_low = draws.randint(max(cfg.low_timesteps, 1), (b,))
+        timesteps = ts[:, None] * frame_on + t_low[:, None] * (1 - frame_on)
+        sa_t, sb_t = sa[timesteps][..., None, None, None], sb[timesteps][..., None, None, None]
+        if scale_arr is not None:
+            z0 = z0 * scale_arr[timesteps][..., None, None, None]
+    else:
+        timesteps = ts
+        sa_t, sb_t = sa[ts][:, None, None, None, None], sb[ts][:, None, None, None, None]
+        if scale_arr is not None:
+            z0 = z0 * scale_arr[ts][:, None, None, None, None]
+    x_noisy = sa_t * z0 + sb_t * noise
+    v_target = sa_t * noise - sb_t * z0
+    x_in = torch.cat([x_noisy, batch["c_concat"]], dim=-1)
+    pred = unet(x_in, timesteps, batch["context"], batch["fs"], task=batch.get("task"))
+    loss = torch.mean((pred - v_target) ** 2)
+    grads = torch.autograd.grad(loss, weights, allow_unused=True)
+    grads = [torch.zeros_like(w) if g is None else g for g, w in zip(grads, weights)]
+    p = [state.params[n] for n in names]
+    step.adam_update_(p, grads, [state.exp_avg[n] for n in names],
+                      [state.exp_avg_sq[n] for n in names], state.step + 1, cfg.learning_rate,
+                      weight_decay=cfg.weight_decay)
+    state.step += 1
+    step.ema_update_([state.ema[n] for n in names], p, state.step, cfg)
+    return float(loss.detach()), float(ts.float().mean())
+
+
+@pytest.mark.parametrize("geometry_condition", [False, True])
+def test_cpu_steps_are_eager_and_match_the_step_before_graphs(models, geometry_condition):
+    """On the CPU every step is eager (counter "train_eager_steps", no
+    capture, no graph), and three steps draw in the order the step drew
+    before the graph path: the same losses and states, bit for bit."""
+    from geo4d_tpu_torch.core.timing import SpanRecorder, recording
+
+    _, _, pm = models
+    cfg = step.TrainConfig(learning_rate=1e-3, geometry_condition=geometry_condition,
+                           low_timesteps=50, temporal_length=T)
+    batches = [{k: torch.from_numpy(v) for k, v in _latent_batch(10 + i).items()}
+               for i in range(3)]
+    module_weights = {n: p.detach().clone() for n, p in pm.unet.named_parameters()}
+    want, got = step.create_train_state(pm.unet), step.create_train_state(pm.unet)
+
+    def no_graph(*a, **k):
+        raise AssertionError("a CUDA graph was built on the CPU")
+
+    rec = SpanRecorder()
+    fn = step.make_train_step(pm.unet, pm.schedule, cfg)
+    built, step._StepGraph = step._StepGraph, no_graph
+    try:
+        want_metrics = [_step_before_graphs(pm, want, b, Draws.seeded([7, i], "cpu"), cfg)
+                        for i, b in enumerate(batches)]
+        with recording(rec):
+            got_metrics = []
+            for i, b in enumerate(batches):
+                got, m = fn(got, b, Draws.seeded([7, i], "cpu"))
+                got_metrics.append((float(m["loss_simple"]), float(m["t_mean"])))
+    finally:
+        step._StepGraph = built
+        step.load_params_(pm.unet, module_weights)
+    assert got_metrics == want_metrics
+    assert got.step == want.step == 3
+    for field in ("params", "exp_avg", "exp_avg_sq", "ema"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert all(torch.equal(g[n], w[n]) for n in w), field
+    assert rec.totals() == {"train_eager_steps": 3}
+    assert not any(s.name == "train_capture" for s in rec.spans)
+    parents = {s.id: s.name for s in rec.spans}
+    assert {parents[sid] for sid, _, name, _ in rec.counts} == {"forward_backward"}
+
+
+class _ReplayingGraph(step._StepGraph):
+    """A _StepGraph whose stand-in replay runs the captured function again
+    on its static inputs, so that the step's graph path runs on the CPU."""
+
+    built = []
+
+    def __init__(self, key, fn, device=None):
+        self.fn = fn
+        super().__init__(key, fn, graph=_StandInGraph())
+        _ReplayingGraph.built.append(self)
+
+    def replay(self):
+        self.out = self.fn()
+        return super().replay()
+
+
+def test_graph_path_replays_the_eager_step(models, monkeypatch):
+    """make_train_step's graph path (forced on the CPU, a stand-in graph
+    that re-runs the capture on its static inputs): a shape's first step is
+    eager, the second captures, every later one replays; the inputs reach
+    the graph through its static buffers, so the losses and states equal
+    eager steps bit for bit. A new state or batch shape frees the graph; a
+    shape seen before captures at once, a new one runs eagerly first."""
+    from geo4d_tpu_torch.core.timing import SpanRecorder, recording
+
+    _, _, pm = models
+    cfg = step.TrainConfig(learning_rate=1e-3, geometry_condition=True, low_timesteps=50,
+                           temporal_length=T)
+    module_weights = {n: p.detach().clone() for n, p in pm.unet.named_parameters()}
+    monkeypatch.setattr(step, "_StepGraph", _ReplayingGraph)
+    _ReplayingGraph.built = []
+    small = {k: v[:1] for k, v in _latent_batch(20).items()}
+    batches = [_latent_batch(20 + i) for i in range(3)] + [small, _latent_batch(24)]
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    states = {}
+    try:
+        for capture in (False, True):
+            step.load_params_(pm.unet, module_weights)
+            state = step.create_train_state(pm.unet)
+            fn = step.make_train_step(pm.unet, pm.schedule, cfg)
+            assert fn.capture is False                      # the CPU's rule
+            fn.capture = capture
+            rec, losses = SpanRecorder(), []
+            with recording(rec):
+                for i, b in enumerate(batches):
+                    state, m = fn(state, b, Draws.seeded([9, i], "cpu"))
+                    losses.append(float(m["loss_simple"]))
+                # a new state of a warm shape captures at once
+                fresh = step.create_train_state(pm.unet)
+                fresh, m = fn(fresh, batches[0], Draws.seeded([9, 0], "cpu"))
+                losses.append(float(m["loss_simple"]))
+            states[capture] = (losses, state, rec)
+    finally:
+        step.load_params_(pm.unet, module_weights)
+    (want, eager_state, eager_rec), (got, graph_state, graph_rec) = states[False], states[True]
+    assert got == want
+    for field in ("params", "exp_avg", "exp_avg_sq", "ema"):
+        got_t, want_t = getattr(graph_state, field), getattr(eager_state, field)
+        assert all(torch.equal(got_t[n], want_t[n]) for n in want_t), field
+    assert eager_rec.totals() == {"train_eager_steps": 6}
+    # steps: eager; capture + replay; replay; the small shape frees the graph
+    # and runs eagerly; the first shape again: capture + replay; the fresh
+    # state frees that graph: capture + replay
+    assert graph_rec.totals() == {"train_eager_steps": 2, "train_graph_replays": 4}
+    assert sum(s.name == "train_capture" for s in graph_rec.spans) == 3
+    assert [g.key[0][1] for g in _ReplayingGraph.built] == [(B, T, h, w, 16), (B, T, h, w, 16),
+                                                           (B, T, h, w, 16)]

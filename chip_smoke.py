@@ -226,6 +226,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import json
 import os
 import shutil
@@ -1636,13 +1637,13 @@ def _aligner_run(al, graphs):
     ms per iteration (the benchmark's align_iter_ms: both phases and the
     calibration), peak memory, memory left after it and counters."""
     from geo4d_tpu_torch.core import timing
+    from geo4d_tpu_torch.ops import graphs as graph_replay
 
     rec, timer = timing.SpanRecorder(), timing.StageTimer(al.device)
-    al.capture_iterations = graphs
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    with timing.recording(rec):
+    with timing.recording(rec), contextlib.nullcontext() if graphs else graph_replay.eager():
         al.run(timer=timer)
     torch.cuda.synchronize()
     sec = timer.seconds
@@ -2152,20 +2153,19 @@ def train_repeat_phase(dev):
 
 def _graph_side(model, batch, dev, cfg, capture, eager_grads=None):
     """Three steps of make_train_step(model.unet, ..., cfg) from the state of
-    the module's weights, `capture` forcing the step's rule, with the draws
+    the module's weights, every step eager unless `capture`, with the draws
     of train_repeat. Without `eager_grads`, each step's gradients are kept
     on the host; with them (the other side's), each gradient is compared
     there. Returns the record and the host gradients."""
     from geo4d_tpu_torch.core.draws import Draws
     from geo4d_tpu_torch.core.timing import SpanRecorder, StageTimer, recording
+    from geo4d_tpu_torch.ops import graphs as graph_replay
     from geo4d_tpu_torch.training import step as train_step
 
     names = [n for n, _ in model.unet.named_parameters()]
     stats = kernel_stats()
     state = train_step.create_train_state(model.unet)
     fn = train_step.make_train_step(model.unet, model.schedule, cfg)
-    rule = fn.capture
-    fn.capture = capture
     grads_seen, gaps, equal = [], [], []
     adam = train_step.adam_update_
 
@@ -2191,7 +2191,7 @@ def _graph_side(model, batch, dev, cfg, capture, eager_grads=None):
     torch.cuda.reset_peak_memory_stats(dev)
     train_step.adam_update_ = recording_adam
     try:
-        with recording(rec):
+        with recording(rec), contextlib.nullcontext() if capture else graph_replay.eager():
             for i in range(3):
                 before = {k: (dict(s.by_shape), dict(s.backward_by_shape))
                           for k, s in stats.items()}
@@ -2209,7 +2209,7 @@ def _graph_side(model, batch, dev, cfg, capture, eager_grads=None):
     finally:
         train_step.adam_update_ = adam
     torch.cuda.synchronize()
-    out = {"rule": rule, "capture": capture, "losses": losses, "fingerprint":
+    out = {"capture": capture, "losses": losses, "fingerprint":
            state_fingerprint(state), "launches": launches, "fwd_bwd_ms": fwd_bwd_ms,
            "counters": rec.totals(),
            "captures": sum(s.name == "train_capture" for s in rec.spans),
@@ -2223,7 +2223,7 @@ def _graph_side(model, batch, dev, cfg, capture, eager_grads=None):
 
 def train_graph_phase(dev):
     """Phase 15b: the step's CUDA graph against its eager steps, with remat
-    off and on (the rule takes the graph in both). Returns the two
+    off and on (the step takes the graph in both). Returns the two
     records."""
     from geo4d_tpu_torch.training.step import TrainConfig
 
@@ -2261,8 +2261,6 @@ def train_graph_phase(dev):
     for remat, rec in records.items():
         what = f"train_graph (remat {remat})"
         g, e = rec["graph"], rec["eager"]
-        if not g["rule"]:
-            raise AssertionError(f"{what}: the step's rule does not take the graph")
         if not (rec["losses_equal"] and rec["grads_equal"] and rec["states_equal"]):
             raise AssertionError(f"{what}: the graph's steps differ from the eager ones "
                                  f"(largest gradient gap {rec['grad_gap_max']})")

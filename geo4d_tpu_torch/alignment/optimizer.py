@@ -25,10 +25,10 @@ existing parameter and gate tensors in place. The frame gathers sum their
 gradients in a fixed order, so a run repeats bit for bit. On CUDA each loss
 structure (phase 1; phase 2; a flow term that switches on mid-phase)
 computes its first iteration's loss and gradients eagerly and every later
-one by replaying one CUDA graph of them; the fused Adam step stays eager,
-so a replayed iteration does the eager one's arithmetic bit for bit. On
-the CPU every iteration is eager. Layout: plain (N, P, 3) point tensors
-and index gathers, all on the device of the predictions.
+one by replaying one CUDA graph of them (ops/graphs.py); the fused Adam
+step stays eager, so a replayed iteration does the eager one's arithmetic
+bit for bit. Layout: plain (N, P, 3) point tensors and index gathers, all
+on the device of the predictions.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from geo4d_tpu_torch.evals.trajectory import Trajectory, align_trajectory_with_e
 from geo4d_tpu_torch.geometry.se3 import params_to_pose, pose_to_params
 from geo4d_tpu_torch.geometry.utils import inv_se3
 from geo4d_tpu_torch.geometry.warp import flow_error_sums
+from geo4d_tpu_torch.ops import graphs
 
 PARAM_NAMES = ("log_depth", "poses", "pw_poses", "traj_align", "focal", "s_depth", "t_depth")
 
@@ -126,32 +127,6 @@ class _GatherFrames(torch.autograd.Function):
         for k in range(slots.shape[1]):
             out.add_(padded.index_select(0, slots[:, k]))
         return out, None, None
-
-
-@functools.cache
-def _side_stream(device: torch.device) -> torch.cuda.Stream:
-    """The stream the aligner's CUDA graphs are captured and replayed on
-    (capture needs a stream other than the default one), one per device
-    for the process, so that the memory cached for it is reused."""
-    return torch.cuda.Stream(device=device)
-
-
-class _IterationGraph:
-    """`fn` (an iteration's loss and gradients) captured in a CUDA graph on
-    the current stream: `loss` is its output, `replay` runs it again."""
-
-    def __init__(self, key: tuple, fn):
-        self.key = key
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.capture_begin()
-        try:
-            self.loss = fn()
-        finally:
-            self.graph.capture_end()
-
-    def replay(self) -> torch.Tensor:
-        self.graph.replay()
-        return self.loss
 
 
 class GroupAligner:
@@ -370,10 +345,6 @@ class GroupAligner:
     def focal_frozen(self) -> bool:
         return not self.params["focal"].requires_grad
 
-    # Tests set this False on an aligner to run every CUDA iteration
-    # eagerly: the arithmetic a replayed iteration has to equal bit for bit.
-    capture_iterations = True
-
     def _structure(self, it: int, use_depth_traj: bool) -> tuple:
         """The loss terms live at iteration `it`: one CUDA graph each."""
         flow = self.has_flow and it / self.cfg.n_iter >= self.cfg.flow_loss_start_frac
@@ -386,11 +357,11 @@ class GroupAligner:
         "align_phase1", "calibrate", "align_phase2"; each iteration is a
         span "align_iter" (`core.timing`). An eager iteration has children
         "align_loss", "align_backward" and "align_adam"; on CUDA each loss
-        structure's second iteration captures its loss and gradients in a
-        CUDA graph (span "align_capture" before it) and it and every later
-        one replay it, with the child "align_adam" only. The graphs and
-        their memory are released before returning. Counters
-        "align_eager_iters" and "align_graph_replays" count both kinds."""
+        structure's second iteration captures its loss and gradients (span
+        "align_capture" before it) and it and every later one replay them,
+        with the child "align_adam" only. The graphs and their memory are
+        released before returning. Counters "align_eager_iters" and
+        "align_graph_replays" count both kinds."""
         cfg = self.cfg
         start = min(cfg.depth_traj_start_iter, cfg.n_iter)
         trainable = [self.params[k] for k in PARAM_NAMES if self.params[k].requires_grad]
@@ -398,14 +369,13 @@ class GroupAligner:
         opt = torch.optim.Adam(trainable, lr=cfg.lr, betas=(0.9, 0.9), eps=1e-8, fused=cuda)
         if cfg.depth_regularize_weight > 0:
             self._log_depth_init = self.params["log_depth"].detach().clone()
-        graphs = cuda and self.capture_iterations
         losses = torch.zeros(cfg.n_iter, device=self.device)
 
         def gradients(it, use_depth_traj):
+            opt.zero_grad(set_to_none=True)     # a last graph's gradients hold its pool
             with span("align_loss"):
                 loss = self.loss_fn(self.params, use_depth_traj, it / cfg.n_iter)
             with span("align_backward"):
-                opt.zero_grad(set_to_none=True)
                 loss.backward()
                 for p in trainable:
                     # a trainable leaf outside this phase's loss (traj_align
@@ -415,32 +385,25 @@ class GroupAligner:
                         p.grad = torch.zeros_like(p)
             return loss.detach()
 
-        graph: Optional[_IterationGraph] = None
-        warm = set()            # the structures whose eager iteration has run
+        replay = graphs.GraphReplay(self.device, "align_capture")
 
         def phase(iters, use_depth_traj):
-            nonlocal graph
             for it in iters:
                 key = self._structure(it, use_depth_traj)
-                if graphs and key in warm and (graph is None or graph.key != key):
-                    graph = None                    # frees the last structure's graph
-                    opt.zero_grad(set_to_none=True)
-                    with span("align_capture"):
-                        graph = _IterationGraph(key, lambda: gradients(it, use_depth_traj))
+                fn = functools.partial(gradients, it, use_depth_traj)
+                replay.prepare(key, fn)             # a capture precedes its iteration's span
                 with span("align_iter"):
-                    if graph is not None and graph.key == key:
-                        losses[it].copy_(graph.replay())
-                        count("align_graph_replays")
-                    else:
-                        losses[it].copy_(gradients(it, use_depth_traj))
-                        warm.add(key)
-                        count("align_eager_iters")
+                    loss, replayed = replay(key, fn)
+                    losses[it].copy_(loss)
+                    count("align_graph_replays" if replayed else "align_eager_iters")
                     with span("align_adam"):
                         opt.param_groups[0]["lr"] = _lr_at(it, cfg)
                         opt.step()
 
-        stream = _side_stream(self.device) if graphs else None
-        if graphs:
+        # the whole run on the stream the graphs are captured on: on the caller's,
+        # the eager iterations took 32 MiB more peak (H100, 32 frames at 576x256)
+        stream = graphs.side_stream(self.device) if cuda else None
+        if cuda:
             stream.wait_stream(torch.cuda.current_stream(self.device))
         try:
             with torch.enable_grad(), torch.cuda.stream(stream):
@@ -454,9 +417,9 @@ class GroupAligner:
                 with stage(timer, "align_phase2"):
                     phase(range(start, cfg.n_iter), True)
         finally:
-            graph = None
+            replay.free()
             opt.zero_grad(set_to_none=True)     # the last graph's gradients live in its pool
-            if graphs:
+            if cuda:
                 torch.cuda.current_stream(self.device).wait_stream(stream)
         final = float(losses[-1]) if cfg.n_iter > 0 else 0.0
         if verbose:

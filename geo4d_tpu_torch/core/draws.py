@@ -40,14 +40,18 @@ class Draws:
 
 class GivenDraws:
     """Draws handed in as arrays, returned one per call in order (the tests
-    pass the JAX package's draws); each must have the shape asked for."""
+    pass the JAX package's draws; the training step its draws made before a
+    CUDA graph, as tensors, used where they are); each must have the shape
+    asked for."""
 
     def __init__(self, arrays, device="cpu"):
         self.arrays = list(arrays)
         self.device = torch.device(device)
 
     def _next(self, shape) -> torch.Tensor:
-        a = torch.as_tensor(np.asarray(self.arrays.pop(0)), device=self.device)
+        a = self.arrays.pop(0)
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a), device=self.device)
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"given draw of shape {tuple(a.shape)}, asked for {tuple(shape)}")
         return a

@@ -68,20 +68,20 @@ class KernelStats:
     tuple; `backward_launches` and `backward_by_shape` count the backward
     kernel's launches the same way; `plain_on_cuda` counts calls of a plain
     version (forward or backward) with a CUDA tensor (only a comparison
-    against the kernel does that)."""
+    against the kernel does that). Every instance is listed in `registry`,
+    so that a CUDA graph's capture and replays (ops/graphs.py) can charge
+    launches that no wrapper call makes."""
+
+    registry: list = []
 
     def __init__(self):
-        self.launches = 0
         self.by_shape: collections.Counter = collections.Counter()
-        self.backward_launches = 0
         self.backward_by_shape: collections.Counter = collections.Counter()
-        self.plain_on_cuda = 0
+        self.reset()
+        KernelStats.registry.append(self)
 
     def reset(self) -> None:
-        self.launches = 0
-        self.by_shape.clear()
-        self.backward_launches = 0
-        self.backward_by_shape.clear()
+        self.restore((0, {}, 0, {}))
         self.plain_on_cuda = 0
 
     def note_launch(self, shape: tuple) -> None:
@@ -95,6 +95,26 @@ class KernelStats:
     def note_plain(self, x: torch.Tensor) -> None:
         if x.is_cuda:
             self.plain_on_cuda += 1
+
+    def snapshot(self) -> tuple:
+        """The launch counters as they stand: (launches, by_shape,
+        backward_launches, backward_by_shape)."""
+        return (self.launches, collections.Counter(self.by_shape), self.backward_launches,
+                collections.Counter(self.backward_by_shape))
+
+    def restore(self, counts: tuple) -> None:
+        """Sets the launch counters to a `snapshot`."""
+        self.launches = self.backward_launches = 0
+        self.by_shape.clear()
+        self.backward_by_shape.clear()
+        self.add(counts)
+
+    def add(self, counts: tuple) -> None:
+        """Adds launches counted as a `snapshot` counts them."""
+        self.launches += counts[0]
+        self.by_shape.update(counts[1])
+        self.backward_launches += counts[2]
+        self.backward_by_shape.update(counts[3])
 
 
 def use_kernel(x: torch.Tensor) -> bool:

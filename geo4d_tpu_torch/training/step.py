@@ -27,17 +27,14 @@ moments and EMA are held as the rank's slice: the slices are gathered into
 the module before the forward, and the gradients reduce-scattered to slices
 after the backward.
 
-On one CUDA device (no mesh) the step's forward and backward
-run as one replayed CUDA graph per batch shape: the first step of a shape
-runs eagerly, the next captures the weights' load, the loss and its
-gradient (span "train_capture"), and it and every later step of that shape
-replay the capture. The draws stay eager and in the same order, copied with
-the batch into the graph's inputs; AdamW and the EMA stay eager.
+On one CUDA device (no mesh) the weights' load, the loss and its gradient
+replay as one CUDA graph per batch shape (ops/graphs.py). The draws stay
+eager, in the same order, copied with the batch into the graph's inputs;
+AdamW and the EMA stay eager.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 from typing import Dict, List
@@ -45,10 +42,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from geo4d_tpu_torch.core.draws import RankDraws
+from geo4d_tpu_torch.core.draws import GivenDraws, RankDraws
 from geo4d_tpu_torch.core.schedules import DiffusionSchedule
 from geo4d_tpu_torch.core.timing import count, span, stage
-from geo4d_tpu_torch.ops import flash_attention, group_norm, temporal_attention
+from geo4d_tpu_torch.ops import graphs
 from geo4d_tpu_torch.parallel.mesh import Mesh
 from geo4d_tpu_torch.parallel.sharding import (ShardLayout, all_gather_full, all_reduce_mean,
                                                reduce_scatter_mean)
@@ -158,20 +155,6 @@ def draw_loss_inputs(draws, shape, num_timesteps: int, cfg: TrainConfig) -> List
     return out
 
 
-class _Drawn:
-    """Draws made before the call (a CUDA graph's static inputs), handed
-    out in the order `draw_loss_inputs` asks for them."""
-
-    def __init__(self, tensors: List[torch.Tensor]):
-        self._next = iter(tensors)
-
-    def randint(self, high: int, shape) -> torch.Tensor:
-        return next(self._next)
-
-    def normal(self, shape) -> torch.Tensor:
-        return next(self._next)
-
-
 def diffusion_loss(unet: torch.nn.Module, schedule: DiffusionSchedule,
                    batch: Dict[str, torch.Tensor], draws, cfg: TrainConfig):
     """v-param MSE on a latent batch: z0 (B, T, h, w, C) target latents,
@@ -266,81 +249,6 @@ def load_params_(module: torch.nn.Module, params: Dict[str, torch.Tensor]) -> No
                              [params[n] for n in names])
 
 
-def _kernel_stats() -> list:
-    """The KernelStats of the hand kernels the UNet launches."""
-    return [group_norm.stats, flash_attention.stats, temporal_attention.stats]
-
-
-def _launch_counts(stats) -> tuple:
-    return (stats.launches, collections.Counter(stats.by_shape), stats.backward_launches,
-            collections.Counter(stats.backward_by_shape))
-
-
-def _set_launch_counts(stats, counts: tuple) -> None:
-    stats.launches, stats.backward_launches = counts[0], counts[2]
-    stats.by_shape.clear()
-    stats.by_shape.update(counts[1])
-    stats.backward_by_shape.clear()
-    stats.backward_by_shape.update(counts[3])
-
-
-def _add_launch_counts(stats, counts: tuple) -> None:
-    stats.launches += counts[0]
-    stats.by_shape.update(counts[1])
-    stats.backward_launches += counts[2]
-    stats.backward_by_shape.update(counts[3])
-
-
-@functools.cache
-def _side_stream(device: torch.device) -> torch.cuda.Stream:
-    """The stream the step's CUDA graphs are captured on (capture needs a
-    stream other than the default one), one per device for the process."""
-    return torch.cuda.Stream(device=device)
-
-
-class _StepGraph:
-    """`fn()` captured in a CUDA graph; `out` is its static output and
-    `replay` runs it again (on the current stream). By default the graph is
-    a torch.cuda.CUDAGraph captured on `device`'s side stream, after the
-    allocator's unused cached blocks are released to make room for its
-    pool; `graph` stands in for it (the CPU tests). A captured launch runs
-    nothing, so the launches the op wrappers noted in their KernelStats
-    while capturing are taken back, and each replay, which calls no
-    wrapper, notes them again."""
-
-    def __init__(self, key: tuple, fn, device=None, graph=None):
-        self.key = key
-        if graph is None:
-            torch.cuda.empty_cache()
-            side = _side_stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                self._capture(fn, torch.cuda.CUDAGraph())
-            torch.cuda.current_stream(device).wait_stream(side)
-        else:
-            self._capture(fn, graph)
-
-    def _capture(self, fn, graph) -> None:
-        self.graph = graph
-        stats = _kernel_stats()
-        before = [_launch_counts(s) for s in stats]
-        graph.capture_begin()
-        try:
-            self.out = fn()
-        finally:
-            graph.capture_end()
-            after = [_launch_counts(s) for s in stats]
-            for s, counts in zip(stats, before):
-                _set_launch_counts(s, counts)
-        self.launches = [tuple(a - b for a, b in zip(x, y)) for x, y in zip(after, before)]
-
-    def replay(self):
-        self.graph.replay()
-        for s, counts in zip(_kernel_stats(), self.launches):
-            _add_launch_counts(s, counts)
-        return self.out
-
-
 def _mesh_parts(names: List[str], mesh: Mesh, layout: ShardLayout):
     """(replicated indices, sharded indices, sharded dims) of `names`."""
     layout = layout or ShardLayout.replicated(names, mesh)
@@ -364,14 +272,11 @@ def make_train_step(unet: torch.nn.Module, schedule: DiffusionSchedule, cfg: Tra
     "optimizer".
 
     On CUDA without a mesh (with or without `remat`), the forward and backward
-    of a batch shape's first step run eagerly; its second step captures
-    them in a CUDA graph (span "train_capture", once, inside
-    "forward_backward") and it and every later step of the shape replay the
-    graph, until the shape or the state's master-weight tensors change (the
-    graph is then freed). Counters "train_eager_steps" and
-    "train_graph_replays" count both kinds of step; on the CPU and with a
-    mesh every step is eager. The returned function's `capture` attribute
-    holds that rule; setting it to False makes every step eager.
+    follow `ops/graphs.py`'s rule keyed by the batch's shapes: a shape's
+    first step is eager, its second captures (span "train_capture", inside
+    "forward_backward"), and it and every later one replay, until the shape
+    or the state's master-weight tensors change. Counters
+    "train_eager_steps" and "train_graph_replays" count both kinds of step.
 
     With a `mesh`, `batch` holds this rank's rows of the global batch and
     `draws` gives the global batch's draws (the step keeps its rows). The
@@ -385,9 +290,6 @@ def make_train_step(unet: torch.nn.Module, schedule: DiffusionSchedule, cfg: Tra
     weights = [p for _, p in unet.named_parameters()]
     device = weights[0].device
     schedule = schedule_on(schedule, device)
-    # with `remat` the capture holds the checkpointed blocks' recomputation
-    # too (non-reentrant checkpointing; equal to eager bit for bit on the card)
-    graphs = device.type == "cuda" and mesh is None
     if mesh is not None:
         rep, shd, dims = _mesh_parts(names, mesh, layout)
 
@@ -408,54 +310,38 @@ def make_train_step(unet: torch.nn.Module, schedule: DiffusionSchedule, cfg: Tra
             out[i] = g
         return out
 
-    def loss_and_grads(state: TrainState, batch, draws):
-        """(metrics, gradients) at the state's master weights."""
+    def loss_and_grads(state: TrainState, keys, *xs):
+        """(metrics, gradients) at the state's master weights; `xs` are the
+        batch's entries under `keys`, then the loss's draws."""
         if mesh is None:
             load_params_(unet, state.params)
         with span("loss"):
-            loss, metrics = diffusion_loss(unet, schedule, batch, draws, cfg)
+            loss, metrics = diffusion_loss(unet, schedule, dict(zip(keys, xs)),
+                                           GivenDraws(xs[len(keys):]), cfg)
         with span("backward"):
             grads = torch.autograd.grad(loss, weights, allow_unused=True)
         # an unused parameter's gradient is zero; weight decay still applies
         return metrics, [torch.zeros_like(w) if g is None else g for g, w in zip(grads, weights)]
 
-    graph = None            # the current batch shape's captured forward and backward
-    warm = set()            # the batch shapes whose eager step has run
-
-    def capture(key, state, inputs, drawn):
-        static = {k: v.clone() for k, v in inputs.items()}
-        static_drawn = [t.clone() for t in drawn]
-        with span("train_capture"):
-            g = _StepGraph(key, lambda: loss_and_grads(state, static, _Drawn(static_drawn)),
-                           device)
-        g.inputs, g.drawn, g.sources = static, static_drawn, [state.params[n] for n in names]
-        return g
+    # a capture first frees the allocator's unused cached blocks for its pool;
+    # with `remat` it holds the blocks' (non-reentrant) recomputation too
+    replay = graphs.GraphReplay(device, "train_capture", release=torch.cuda.empty_cache)
 
     def forward_backward(state: TrainState, batch, draws):
-        nonlocal graph
-        if step.capture:
-            inputs = {k: batch[k] for k in BATCH_KEYS if batch.get(k) is not None}
-            key = tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items())
-            if graph is not None and (graph.key != key or any(
-                    a is not state.params[n] for a, n in zip(graph.sources, names))):
-                graph = None                # frees the last capture and its pool
-            if graph is not None or key in warm:
-                # the draws stay eager, in the loss's order
-                drawn = draw_loss_inputs(draws, batch["z0"].shape, schedule.num_timesteps, cfg)
-                if graph is None:
-                    graph = capture(key, state, inputs, drawn)
-                for k, v in graph.inputs.items():
-                    v.copy_(inputs[k])
-                for v, d in zip(graph.drawn, drawn):
-                    v.copy_(d)
-                metrics, grads = graph.replay()
-                count("train_graph_replays")
-                # fresh tensors, as an eager step returns: the next replay
-                # overwrites the graph's outputs
-                return {k: v.clone() for k, v in metrics.items()}, list(grads)
-            warm.add(key)
-        count("train_eager_steps")
-        return loss_and_grads(state, batch, draws)
+        keys = [k for k in BATCH_KEYS if batch.get(k) is not None]
+        # the draws, in the loss's order, are inputs of the graph like the batch
+        inputs = [batch[k] for k in keys] + draw_loss_inputs(
+            draws, batch["z0"].shape, schedule.num_timesteps, cfg)
+        fn = functools.partial(loss_and_grads, state, keys)
+        if mesh is not None:
+            count("train_eager_steps")
+            return fn(*inputs)
+        shapes = tuple((k, tuple(x.shape), x.dtype) for k, x in zip(keys, inputs))
+        (metrics, grads), replayed = replay(shapes, fn, inputs,
+                                            reads=[state.params[n] for n in names])
+        count("train_graph_replays" if replayed else "train_eager_steps")
+        # fresh metrics: the next replay overwrites the graph's outputs
+        return {k: v.clone() for k, v in metrics.items()}, list(grads)
 
     def step(state: TrainState, batch, draws, timer=None):
         if mesh is not None:
@@ -483,6 +369,4 @@ def make_train_step(unet: torch.nn.Module, schedule: DiffusionSchedule, cfg: Tra
                 ema_update_([state.ema[n] for n in names], p, state.step, cfg)
         return state, metrics
 
-    # False runs every step eagerly (chip_smoke.py compares the two)
-    step.capture = graphs
     return step

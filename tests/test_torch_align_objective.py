@@ -17,6 +17,8 @@ Tolerances: loss 1e-6 relative, each gradient 1e-5 relative L2 (float32
 summation order; measured ~1e-7 and ~3e-7).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ import torch
 from geo4d_tpu_torch.alignment.optimizer import AlignerConfig, GroupAligner
 from geo4d_tpu_torch.geometry.se3 import params_to_pose
 from geo4d_tpu_torch.ops import align_objective as objective
+from geo4d_tpu_torch.ops import graphs
 from geo4d_tpu_torch.tools.profile_aligner import synthetic_scene
 
 torch.set_num_threads(1)
@@ -312,12 +315,12 @@ def test_graph_run_equals_eager_run():
     sc = synthetic_scene(**SCENE)
     preds = {k: torch.from_numpy(v).to(dev) for k, v in sc["preds"].items()}
     runs = []
-    for graphs in (True, False):
+    for mode in (contextlib.nullcontext, graphs.eager):
         al = GroupAligner(sc["groups"], preds["pts3d"], preds["conf"], sc["hw"],
                           invdepth=preds["inv_depth"], trajs=preds["traj"],
                           config=AlignerConfig(n_iter=12, depth_traj_start_iter=5))
-        al.capture_iterations = graphs
-        al.run()
+        with mode():
+            al.run()
         runs.append(al)
     for k in runs[0].params:
         assert torch.equal(runs[0].params[k], runs[1].params[k]), k

@@ -16,6 +16,7 @@ Tolerances (the issue of this slice asked for these):
   * the task-conditioned UNet: 1e-4, as the other towers.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -30,7 +31,9 @@ from geo4d_tpu.training import modalities as jax_modalities
 from geo4d_tpu.training import step as jax_step
 from geo4d_tpu_torch.core.draws import Draws, GivenDraws
 from geo4d_tpu_torch.models.presets import tiny
+from geo4d_tpu_torch.ops import graphs
 from geo4d_tpu_torch.training import modalities, step
+from test_torch_graphs import ReplayingGraph
 from _torch_parity import (assert_close, load_from_jax, randomize, rel_err,
                            state_dict_from_jax, to_torch)
 
@@ -406,84 +409,7 @@ def test_train_cli_needs_cuda_unless_asked_for_cpu(tmp_path):
         train.main(["--data_dir", str(tmp_path), "--out_dir", str(tmp_path / "o"), "--tiny"])
 
 
-# ---------------- the step's CUDA graph: launch accounting, eager rule ----------------
-
-
-class _StandInGraph:
-    """torch.cuda.CUDAGraph's capture and replay calls, on the CPU."""
-
-    def __init__(self):
-        self.calls = []
-
-    def capture_begin(self):
-        self.calls.append("begin")
-
-    def capture_end(self):
-        self.calls.append("end")
-
-    def replay(self):
-        self.calls.append("replay")
-
-
-def _stats_snapshot():
-    from geo4d_tpu_torch.ops import flash_attention, group_norm, temporal_attention
-
-    return [(s.launches, dict(s.by_shape), s.backward_launches, dict(s.backward_by_shape))
-            for s in (group_norm.stats, flash_attention.stats, temporal_attention.stats)]
-
-
-def test_step_graph_charges_captured_launches_to_each_replay():
-    """A capture leaves the kernels' launch counts as they were (a captured
-    launch runs nothing); each replay adds exactly what the capture noted,
-    forward and backward, per shape."""
-    from geo4d_tpu_torch.ops import flash_attention, group_norm, temporal_attention
-
-    group_norm.stats.note_launch((1, 64, 32, True))       # counts from before the capture
-    before = _stats_snapshot()
-
-    def fn():
-        group_norm.stats.note_launch((1, 64, 32, True))
-        group_norm.stats.note_launch((2, 16, 64, False))
-        group_norm.stats.note_backward((1, 64, 32, True))
-        flash_attention.stats.note_launch((1, 256, 256, 5))
-        flash_attention.stats.note_backward((1, 256, 256, 5))
-        temporal_attention.stats.note_backward((64, 16, 320, 5))
-        return "out"
-
-    stand_in = _StandInGraph()
-    g = step._StepGraph(("key",), fn, graph=stand_in)
-    assert stand_in.calls == ["begin", "end"] and g.out == "out" and g.key == ("key",)
-    assert _stats_snapshot() == before
-    for n in (1, 2):
-        assert g.replay() == "out"
-        gn, fa, ta = _stats_snapshot()
-        b_gn, b_fa, b_ta = before
-        assert gn[0] == b_gn[0] + 2 * n and gn[2] == b_gn[2] + n
-        assert gn[1] == {(1, 64, 32, True): b_gn[1][(1, 64, 32, True)] + n,
-                         (2, 16, 64, False): b_gn[1].get((2, 16, 64, False), 0) + n,
-                         **{k: v for k, v in b_gn[1].items()
-                            if k not in ((1, 64, 32, True), (2, 16, 64, False))}}
-        assert gn[3][(1, 64, 32, True)] == b_gn[3].get((1, 64, 32, True), 0) + n
-        assert fa[0] == b_fa[0] + n and fa[2] == b_fa[2] + n
-        assert fa[3][(1, 256, 256, 5)] == b_fa[3].get((1, 256, 256, 5), 0) + n
-        assert ta[0] == b_ta[0] and ta[1] == b_ta[1] and ta[2] == b_ta[2] + n
-    assert stand_in.calls == ["begin", "end", "replay", "replay"]
-
-
-def test_step_graph_restores_counts_when_capture_fails():
-    before = _stats_snapshot()
-
-    def fn():
-        from geo4d_tpu_torch.ops import group_norm
-
-        group_norm.stats.note_launch((3, 8, 8, False))
-        raise RuntimeError("capture failed")
-
-    stand_in = _StandInGraph()
-    with pytest.raises(RuntimeError, match="capture failed"):
-        step._StepGraph(("key",), fn, graph=stand_in)
-    assert stand_in.calls == ["begin", "end"]
-    assert _stats_snapshot() == before
+# ---------------- the step's CUDA graph: eager rule ----------------
 
 
 def _step_before_graphs(pm, state, batch, draws, cfg):
@@ -533,7 +459,8 @@ def _step_before_graphs(pm, state, batch, draws, cfg):
 
 
 @pytest.mark.parametrize("geometry_condition", [False, True])
-def test_cpu_steps_are_eager_and_match_the_step_before_graphs(models, geometry_condition):
+def test_cpu_steps_are_eager_and_match_the_step_before_graphs(models, geometry_condition,
+                                                             monkeypatch):
     """On the CPU every step is eager (counter "train_eager_steps", no
     capture, no graph), and three steps draw in the order the step drew
     before the graph path: the same losses and states, bit for bit."""
@@ -552,7 +479,7 @@ def test_cpu_steps_are_eager_and_match_the_step_before_graphs(models, geometry_c
 
     rec = SpanRecorder()
     fn = step.make_train_step(pm.unet, pm.schedule, cfg)
-    built, step._StepGraph = step._StepGraph, no_graph
+    monkeypatch.setattr(graphs, "_CudaGraph", no_graph)
     try:
         want_metrics = [_step_before_graphs(pm, want, b, Draws.seeded([7, i], "cpu"), cfg)
                         for i, b in enumerate(batches)]
@@ -562,7 +489,6 @@ def test_cpu_steps_are_eager_and_match_the_step_before_graphs(models, geometry_c
                 got, m = fn(got, b, Draws.seeded([7, i], "cpu"))
                 got_metrics.append((float(m["loss_simple"]), float(m["t_mean"])))
     finally:
-        step._StepGraph = built
         step.load_params_(pm.unet, module_weights)
     assert got_metrics == want_metrics
     assert got.step == want.step == 3
@@ -573,22 +499,6 @@ def test_cpu_steps_are_eager_and_match_the_step_before_graphs(models, geometry_c
     assert not any(s.name == "train_capture" for s in rec.spans)
     parents = {s.id: s.name for s in rec.spans}
     assert {parents[sid] for sid, _, name, _ in rec.counts} == {"forward_backward"}
-
-
-class _ReplayingGraph(step._StepGraph):
-    """A _StepGraph whose stand-in replay runs the captured function again
-    on its static inputs, so that the step's graph path runs on the CPU."""
-
-    built = []
-
-    def __init__(self, key, fn, device=None):
-        self.fn = fn
-        super().__init__(key, fn, graph=_StandInGraph())
-        _ReplayingGraph.built.append(self)
-
-    def replay(self):
-        self.out = self.fn()
-        return super().replay()
 
 
 def test_graph_path_replays_the_eager_step(models, monkeypatch):
@@ -604,8 +514,8 @@ def test_graph_path_replays_the_eager_step(models, monkeypatch):
     cfg = step.TrainConfig(learning_rate=1e-3, geometry_condition=True, low_timesteps=50,
                            temporal_length=T)
     module_weights = {n: p.detach().clone() for n, p in pm.unet.named_parameters()}
-    monkeypatch.setattr(step, "_StepGraph", _ReplayingGraph)
-    _ReplayingGraph.built = []
+    monkeypatch.setattr(graphs, "_graph", lambda device: ReplayingGraph)
+    ReplayingGraph.built = []
     small = {k: v[:1] for k, v in _latent_batch(20).items()}
     batches = [_latent_batch(20 + i) for i in range(3)] + [small, _latent_batch(24)]
     batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
@@ -615,10 +525,8 @@ def test_graph_path_replays_the_eager_step(models, monkeypatch):
             step.load_params_(pm.unet, module_weights)
             state = step.create_train_state(pm.unet)
             fn = step.make_train_step(pm.unet, pm.schedule, cfg)
-            assert fn.capture is False                      # the CPU's rule
-            fn.capture = capture
             rec, losses = SpanRecorder(), []
-            with recording(rec):
+            with recording(rec), contextlib.nullcontext() if capture else graphs.eager():
                 for i, b in enumerate(batches):
                     state, m = fn(state, b, Draws.seeded([9, i], "cpu"))
                     losses.append(float(m["loss_simple"]))
@@ -640,5 +548,7 @@ def test_graph_path_replays_the_eager_step(models, monkeypatch):
     # state frees that graph: capture + replay
     assert graph_rec.totals() == {"train_eager_steps": 2, "train_graph_replays": 4}
     assert sum(s.name == "train_capture" for s in graph_rec.spans) == 3
-    assert [g.key[0][1] for g in _ReplayingGraph.built] == [(B, T, h, w, 16), (B, T, h, w, 16),
-                                                           (B, T, h, w, 16)]
+    assert [name for _, _, name, _ in graph_rec.counts] == [
+        "train_eager_steps", "train_graph_replays", "train_graph_replays", "train_eager_steps",
+        "train_graph_replays", "train_graph_replays"]
+    assert len(ReplayingGraph.built) == 3
